@@ -1,0 +1,260 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``dinomc_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each
+printing its results on lines of its own; any failure raises and the
+script exits non-zero:
+
+1. the card (``nvidia-smi`` name and power limit) and the kernel build
+   (``nvcc`` from ``dinomc_tpu_torch/csrc``, timed);
+2. attention K1 (forward) and K2 (backward) against their plain version
+   on the card, in bf16, at the main path's shapes and a few small ones;
+3. photometric K3 against its plain version at 224 and 84 px, with rows
+   that cover every branch;
+4. the real entry point, ``dinomc_tpu_torch.cli.train_dino.train_dino``,
+   for 5 ViT-S/8 steps (out_dim 65536, batch 8, synthetic images, weights
+   from a seed), with every kernel's launch count over that run.
+
+Then one JSON line with each kernel's launches, error and times, and as the
+last line ``{"ok": true, "device": {...}}``. With no CUDA device it exits
+with 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+
+# Tolerances, kernel against its plain version on the same inputs:
+# attention outputs are rounded to bf16 (2^-8 relative) and the kernels also
+# round P to bf16 before the PV product (and dS before dQ/dK), at different
+# points than the plain version does; forward |diff| <= 1e-2 absolute and
+# gradients max|diff| / max|ref| <= 2e-2 leave room for that and no more.
+ATTN_FWD_ATOL = 1e-2
+ATTN_GRAD_RTOL = 2e-2
+# photometric: f32 both sides; the slack is FMA contraction and the order of
+# the mean-gray reduction, amplified by up to 1/0.225 in the normalize.
+PHOTO_ATOL = 1e-4
+
+ATTN_SHAPES = [  # (what, B, N, heads, head_dim, boundary)
+    ("global 224px", 16, 785, 6, 64, 0),
+    ("packed 184+84 px", 8, 631, 6, 64, 530),
+    ("packed 164+124 px", 8, 627, 6, 64, 401),
+    ("packed 144+104 px", 8, 495, 6, 64, 325),
+    ("single 84px", 8, 101, 6, 64, 0),
+    ("ragged small", 2, 70, 2, 32, 33),
+    ("ragged d16", 3, 50, 4, 16, 0),
+]
+TRAIN_ARGS = [
+    "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
+    "--batch_size_per_gpu", "8", "--data_path", "synthetic", "--max_steps", "5",
+    "--device", "cuda", "--print_freq", "1", "--num_workers", "4",
+]
+
+
+def _time_ms(torch, fn, iters=10, warmup=2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def phase_card(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"[card] torch: {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    from dinomc_tpu_torch.ops.hopper import _build
+
+    path, seconds = _build.build()
+    _build.library()
+    print(f"[build] {path.name}: nvcc {seconds:.1f} s")
+    return smi
+
+
+def phase_attention(torch):
+    from dinomc_tpu_torch.ops.hopper.attention import (
+        attention_bwd, attention_fwd, fused_mha, fused_mha_reference,
+    )
+
+    worst_fwd, worst_grad, worst_grad_rel, timing = 0.0, 0.0, 0.0, None
+    for i, (what, B, N, h, d, boundary) in enumerate(ATTN_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        qkv = torch.randn(B, N, 3, h, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(B, N, h, d, generator=gen, device="cuda").bfloat16()
+        scale = 1.0 / math.sqrt(d)
+
+        qkv_k = qkv.clone().requires_grad_()
+        out = fused_mha(*qkv_k.unbind(2), scale, boundary)
+        (g_k,) = torch.autograd.grad(out, qkv_k, do)
+        torch.cuda.synchronize()
+        qkv_r = qkv.clone().requires_grad_()
+        ref = fused_mha_reference(*qkv_r.unbind(2), scale, boundary)
+        (g_r,) = torch.autograd.grad(ref, qkv_r, do, retain_graph=True)
+        torch.cuda.synchronize()
+
+        fwd_err = (out.float() - ref.float()).abs().max().item()
+        grad_err = (g_k.float() - g_r.float()).abs().amax(dim=(0, 1, 3, 4))
+        grad_rel = (grad_err / g_r.float().abs().amax(dim=(0, 1, 3, 4))).max().item()
+        print(f"[attention] {what}: B={B} N={N} h={h} d={d} boundary={boundary}  "
+              f"fwd max|diff| {fwd_err:.3e}  dq/dk/dv max abs {grad_err.tolist()}  "
+              f"max rel {grad_rel:.3e}")
+        if not (fwd_err <= ATTN_FWD_ATOL and grad_rel <= ATTN_GRAD_RTOL):
+            raise AssertionError(f"attention kernel disagrees with its plain version at {what}")
+        worst_fwd = max(worst_fwd, fwd_err)
+        worst_grad = max(worst_grad, grad_err.max().item())
+        worst_grad_rel = max(worst_grad_rel, grad_rel)
+
+        if i < 5:  # main-path shapes: time kernel against plain
+            q, k, v = qkv.unbind(2)
+            o, lse = attention_fwd(q, k, v, scale, boundary)
+            t = {
+                "fwd_ms": _time_ms(torch, lambda: attention_fwd(q, k, v, scale, boundary)),
+                "fwd_plain_ms": _time_ms(torch, lambda: fused_mha_reference(q, k, v, scale, boundary)),
+                "bwd_ms": _time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do, scale, boundary)),
+                "bwd_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                    ref, qkv_r, do, retain_graph=True)),
+            }
+            print(f"[attention] {what} times: " + "  ".join(f"{k} {v:.4f}" for k, v in t.items()))
+            if timing is None:
+                timing = t
+        del qkv_r, ref, g_r
+    print(f"[attention] worst: fwd max|diff| {worst_fwd:.3e} (bound {ATTN_FWD_ATOL}), grad "
+          f"max|diff| {worst_grad:.3e}, max rel {worst_grad_rel:.3e} (bound {ATTN_GRAD_RTOL})")
+    return worst_fwd, worst_grad, timing
+
+
+def _branch_rows(torch, B, S):
+    from dinomc_tpu_torch.ops.hopper import augment as ha
+
+    gen = torch.Generator(device="cuda").manual_seed(7 + S)
+    rows = ha.draw_photometric_params(gen, B, (0.8, 0.8, 0.8, 0.2), 0.5, 0.5, 0.5, 0.5, device="cuda")
+    flags = torch.tensor([  # jitter, gray, blur, solarize per sample
+        [1, 0, 1, 0], [0, 0, 1, 1], [1, 1, 0, 0], [0, 1, 0, 1],
+        [1, 0, 1, 1], [0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 1, 1],
+    ], dtype=torch.float32, device="cuda")[:B]
+    rows[:, [ha.P_JIT, ha.P_GRAY, ha.P_BLUR, ha.P_SOL]] = flags
+    return rows
+
+
+def phase_photometric(torch):
+    from dinomc_tpu_torch.ops.hopper import augment as ha
+
+    worst, timing = 0.0, None
+    for S in (224, 84):
+        B = 8
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        imgs = torch.rand(B, 3, S, S, generator=gen, device="cuda")
+        rows = _branch_rows(torch, B, S)
+        for mean, std in ((ha.IMAGENET_MEAN, ha.IMAGENET_STD), ((0.0,) * 3, (1.0,) * 3)):
+            out = ha.photometric_kernel(imgs, rows, mean, std)
+            torch.cuda.synchronize()
+            ref = ha.photometric_reference(imgs, rows, mean, std)
+            err = (out - ref).abs().max().item()
+            print(f"[photometric] S={S} B={B} mean={mean}: max|diff| {err:.3e}")
+            if not err <= PHOTO_ATOL:
+                raise AssertionError(f"photometric kernel disagrees with its plain version at S={S}")
+            worst = max(worst, err)
+        if S == 224:
+            timing = {
+                "ms": _time_ms(torch, lambda: ha.photometric_kernel(imgs, rows)),
+                "plain_ms": _time_ms(torch, lambda: ha.photometric_reference(imgs, rows)),
+            }
+            print(f"[photometric] S=224 B=8 times: kernel {timing['ms']:.4f} ms  "
+                  f"plain {timing['plain_ms']:.4f} ms")
+    return worst, timing
+
+
+def phase_train(torch, smi):
+    from dinomc_tpu_torch.cli.train_dino import build_config, get_args_parser, train_dino
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = get_args_parser().parse_args(TRAIN_ARGS + ["--output_dir", out_dir])
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        summary = train_dino(args)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    print(f"[train] losses {summary.losses}")
+    print(f"[train] launches over the run: {launches}")
+    if len(summary.losses) != 5 or not all(math.isfinite(x) for x in summary.losses):
+        raise AssertionError(f"expected 5 finite losses, got {summary.losses}")
+    for name in ("attention_fwd", "attention_bwd", "photometric"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
+
+    _, cfg = build_config(args, 1)
+    init = init_dino_train_state(cfg, args.seed, "cuda")
+    st = summary.state
+    moved = max((a - b).abs().max().item() for a, b in
+                zip(st.student.parameters(), init.student.parameters()))
+    ema = max((a - b).abs().max().item() for a, b in
+              zip(st.teacher.parameters(), init.teacher.parameters()))
+    gap = max((a - b).abs().max().item() for a, b in
+              zip(st.teacher.parameters(), st.student.parameters()))
+    print(f"[train] student max|change| {moved:.3e}  teacher max|change| {ema:.3e}  "
+          f"teacher-student max|gap| {gap:.3e}")
+    if not (moved > 0 and ema > 0 and gap > 0):
+        raise AssertionError("student did not train or teacher did not follow by EMA")
+    med = sorted(summary.step_ms)[len(summary.step_ms) // 2]
+    print(f"[train] step ms (CUDA events, augmentation + step): "
+          f"{[round(x, 3) for x in summary.step_ms]}")
+    print(f"[train] median step {med:.3f} ms, {8 / (med / 1e3):.3f} images/s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"wall {wall:.1f} s  [{smi}]")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    smi = phase_card(torch)
+    fwd_err, grad_err, attn_t = phase_attention(torch)
+    photo_err, photo_t = phase_photometric(torch)
+    launches = phase_train(torch, smi)
+
+    if "jax" in sys.modules:
+        raise AssertionError("the port imported jax")
+    src = "dinomc_tpu_torch/csrc/"
+    kernels = [
+        {"name": "attention_fwd", "route": "cuda", "source": src + "attention.cu",
+         "replaces": "dinomc_tpu/ops/pallas/attention.py:162",
+         "launches": launches.get("attention_fwd", 0), "max_abs_err": fwd_err,
+         "ms": attn_t["fwd_ms"], "plain_ms": attn_t["fwd_plain_ms"]},
+        {"name": "attention_bwd", "route": "cuda", "source": src + "attention.cu",
+         "replaces": "dinomc_tpu/ops/pallas/attention.py:188",
+         "launches": launches.get("attention_bwd", 0), "max_abs_err": grad_err,
+         "ms": attn_t["bwd_ms"], "plain_ms": attn_t["bwd_plain_ms"]},
+        {"name": "photometric", "route": "cuda", "source": src + "photometric.cu",
+         "replaces": "dinomc_tpu/ops/pallas/augment.py:194",
+         "launches": launches.get("photometric", 0), "max_abs_err": photo_err,
+         "ms": photo_t["ms"], "plain_ms": photo_t["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""DINO projection head.
+
+Counterpart of ``dinomc_tpu/models/dino_head.py``; parity target the
+reference ``DINOHead`` (``utils/vision_transformer.py:260-294``): a 3-layer
+MLP in_dim -> 2048 -> 2048 -> 256 with exact-erf GELU, L2 normalization of
+the bottleneck, then a weight-normed linear layer 256 -> out_dim stored as
+``last_layer.weight_v`` (out, in) and ``last_layer.weight_g`` (out, 1), the
+layout ``dino_head_state_dict`` writes. ``g`` is frozen by the optimizer's
+mask when ``norm_last_layer``. The MLP runs in the compute dtype; the
+normalization, the weight-norm and the logits stay f32.
+
+BN-in-head (``use_bn=True``) is not ported yet (ROADMAP.md queue 1 #4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dinomc_tpu_torch.models.vit import Linear, linear, trunc_normal
+
+
+@dataclasses.dataclass(frozen=True)
+class DINOHeadConfig:
+    in_dim: int = 384
+    out_dim: int = 65536
+    hidden_dim: int = 2048
+    bottleneck_dim: int = 256
+    nlayers: int = 3
+    use_bn: bool = False
+    norm_last_layer: bool = True
+    compute_dtype: torch.dtype = torch.bfloat16
+
+
+class WeightNormLinear(nn.Module):
+    """W = g * v / ||v||_row, no bias."""
+
+    def __init__(self, d_in: int, d_out: int, gen):
+        super().__init__()
+        self.weight_g = nn.Parameter(torch.ones(d_out, 1))
+        self.weight_v = trunc_normal((d_out, d_in), gen)
+
+
+class DINOHead(nn.Module):
+    def __init__(self, cfg: DINOHeadConfig, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.use_bn:
+            raise NotImplementedError(
+                "BN-in-head is not ported yet (ROADMAP.md queue 1 #4)"
+            )
+        self.cfg = cfg
+        n = max(cfg.nlayers, 1)
+        dims_in = [cfg.in_dim] + [cfg.hidden_dim] * (n - 1)
+        dims_out = [cfg.hidden_dim] * (n - 1) + [cfg.bottleneck_dim]
+        layers = []
+        for i, (di, do) in enumerate(zip(dims_in, dims_out)):
+            layers.append(Linear(di, do, gen))
+            if i < n - 1:
+                layers.append(nn.GELU())  # Sequential index 2*j holds dense layer j
+        self.mlp = nn.Sequential(*layers)
+        self.last_layer = WeightNormLinear(cfg.bottleneck_dim, cfg.out_dim, gen)
+
+    def forward(self, x):
+        return dino_head_forward(self, x)
+
+
+def dino_head_forward(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
+    """x (B, in_dim) f32 -> logits (B, out_dim) f32."""
+    dt = head.cfg.compute_dtype
+    y = x.to(dt)
+    dense = [m for m in head.mlp if isinstance(m, Linear)]
+    for i, lin in enumerate(dense):
+        y = linear(y, lin)
+        if i < len(dense) - 1:
+            y = F.gelu(y, approximate="none")
+    y = y.float()
+    y = y / y.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    v = head.last_layer.weight_v
+    w = v / v.norm(dim=1, keepdim=True).clamp_min(1e-12) * head.last_layer.weight_g
+    return (y.to(dt) @ w.to(dt).t()).float()

@@ -1,0 +1,361 @@
+"""Vision Transformer (DINO flavor) in PyTorch.
+
+Counterpart of ``dinomc_tpu/models/vit.py``. Parameters carry the
+reference's timm/DINO names (``patch_embed.proj.weight`` (D, 3, p, p),
+``blocks.{i}.attn.qkv.weight`` (out, in), ...), so the state dict that
+``dinomc_tpu.ckpt.torch_export.vit_state_dict`` writes loads with
+``strict=True``. The forward mirrors the JAX one: patchify + one matmul for
+the stride-p patch embed, bicubic position-embedding interpolation with the
+reference's ``+0.1`` scale fudge, pre-norm blocks with f32 LayerNorm
+statistics, per-sample DropPath (one keep-decision per packed segment), and
+every matmul weight cast to ``compute_dtype`` at use. Casts are explicit;
+no autocast.
+
+Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi``,
+``vit_forward_sp``, ``vit_intermediate_layers``, ``vit_last_selfattention``,
+remat policies and ``mlp_impl='fused'``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from dinomc_tpu_torch.ops.attention import mha
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    patch_size: int = 16
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    img_size: int = 224
+    in_chans: int = 3
+    drop_path_rate: float = 0.0
+    layernorm_eps: float = 1e-6
+    compute_dtype: torch.dtype = torch.bfloat16
+    # tanh-approximate GELU (True, the JAX package's training default) vs
+    # exact erf (False, the reference's nn.GELU).
+    gelu_approx: bool = True
+
+    @property
+    def grid(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+
+def vit_tiny(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=192, depth=12, num_heads=3, **kw)
+
+
+def vit_small(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=384, depth=12, num_heads=6, **kw)
+
+
+def vit_base(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_test(patch_size: int = 4, **kw) -> ViTConfig:
+    """Micro ViT for cross-framework parity tests."""
+    kw.setdefault("img_size", 16)
+    return ViTConfig(patch_size=patch_size, embed_dim=32, depth=3, num_heads=2, **kw)
+
+
+VIT_FACTORIES = {
+    "vit_tiny": vit_tiny,
+    "vit_small": vit_small,
+    "vit_base": vit_base,
+    "vit_test": vit_test,
+}
+
+
+# ---------------------------------------------------------------------------
+# parameters (timm/DINO names)
+# ---------------------------------------------------------------------------
+
+
+def trunc_normal(shape, gen: Optional[torch.Generator], std: float = 0.02) -> nn.Parameter:
+    """Truncated normal at +-2 sigma (reference ``trunc_normal_``)."""
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+    return nn.Parameter(t)
+
+
+class Linear(nn.Module):
+    """Weight (out, in) and bias (out,); applied by ``linear`` in the
+    compute dtype."""
+
+    def __init__(self, d_in: int, d_out: int, gen: Optional[torch.Generator]):
+        super().__init__()
+        self.weight = trunc_normal((d_out, d_in), gen)
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cfg: ViTConfig, gen):
+        super().__init__()
+        p = cfg.patch_size
+        self.proj = nn.Module()
+        self.proj.weight = trunc_normal((cfg.embed_dim, cfg.in_chans, p, p), gen)
+        self.proj.bias = nn.Parameter(torch.zeros(cfg.embed_dim))
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int, gen):
+        super().__init__()
+        self.qkv = Linear(d, 3 * d, gen)
+        self.proj = Linear(d, d, gen)
+
+
+class Mlp(nn.Module):
+    def __init__(self, d: int, hidden: int, gen):
+        super().__init__()
+        self.fc1 = Linear(d, hidden, gen)
+        self.fc2 = Linear(hidden, d, gen)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig, gen):
+        super().__init__()
+        self.norm1 = LayerNorm(cfg.embed_dim)
+        self.attn = Attention(cfg.embed_dim, gen)
+        self.norm2 = LayerNorm(cfg.embed_dim)
+        self.mlp = Mlp(cfg.embed_dim, cfg.mlp_dim, gen)
+
+
+class VisionTransformer(nn.Module):
+    """Parameters of one ViT; the forward is ``vit_forward``."""
+
+    def __init__(self, cfg: ViTConfig, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg, gen)
+        self.cls_token = trunc_normal((1, 1, D), gen)
+        self.pos_embed = trunc_normal((1, cfg.num_patches + 1, D), gen)
+        self.blocks = nn.ModuleList([Block(cfg, gen) for _ in range(cfg.depth)])
+        self.norm = LayerNorm(D)
+
+    def forward(self, x, generator=None, deterministic=True, dp_masks=None):
+        return vit_forward(self, x, generator, deterministic, dp_masks)
+
+
+# ---------------------------------------------------------------------------
+# forward pieces
+# ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, lin: Linear) -> torch.Tensor:
+    """x @ W^T + b with W and b cast to x's dtype."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def layer_norm(x: torch.Tensor, ln: LayerNorm, eps: float) -> torch.Tensor:
+    """LayerNorm with f32 statistics; returns x's dtype."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * ln.weight + ln.bias).to(x.dtype)
+
+
+def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H//p * W//p, p*p*C) with (ph, pw, c) inner order;
+    remainder pixels are dropped, like the reference's stride-p conv."""
+    B, H, W, C = x.shape
+    gh, gw = H // patch, W // patch
+    x = x[:, : gh * patch, : gw * patch, :]
+    x = x.reshape(B, gh, patch, gw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, gh * gw, patch * patch * C)
+
+
+@functools.lru_cache(maxsize=64)
+def _torch_bicubic_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """1-D (out, in) weights of torch ``F.interpolate(mode='bicubic',
+    align_corners=False)`` with a given ``scale_factor``: source coordinate
+    (i + 0.5)/scale - 0.5, cubic convolution with A = -0.75, edge-clamped
+    taps, no renormalization, no antialias. Cached: the crop sizes are few."""
+    a = -0.75
+    xs = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
+    i0 = np.floor(xs)
+    t = xs - i0
+
+    def k_inner(x):  # |x| <= 1
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+
+    def k_outer(x):  # 1 < |x| < 2
+        return (((x - 5.0) * x + 8.0) * x - 4.0) * a
+
+    taps = np.stack([k_outer(t + 1.0), k_inner(t), k_inner(1.0 - t), k_outer(2.0 - t)], 0)
+    W = np.zeros((out_size, in_size), np.float64)
+    rows = np.arange(out_size)
+    for j in range(4):
+        idx = np.clip(i0.astype(np.int64) - 1 + j, 0, in_size - 1)
+        np.add.at(W, (rows, idx), taps[j])
+    return W.astype(np.float32)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """Resize the patch position embeddings to a (gh, gw) grid with the
+    reference's bicubic ``scale_factor=(g_new + 0.1)/g_old``; the CLS
+    position is kept. (1, 1 + g0*g0, D) -> (1, 1 + gh*gw, D)."""
+    gh, gw = grid_hw
+    _, n_plus_1, dim = pos_embed.shape
+    g0 = int(math.sqrt(n_plus_1 - 1))
+    if (gh, gw) == (g0, g0):
+        return pos_embed
+    dev = pos_embed.device
+    patch_pos = pos_embed[0, 1:].reshape(g0, g0, dim).float()
+    wh = torch.from_numpy(_torch_bicubic_matrix(g0, gh, (gh + 0.1) / g0)).to(dev)
+    ww = torch.from_numpy(_torch_bicubic_matrix(g0, gw, (gw + 0.1) / g0)).to(dev)
+    patch_pos = torch.einsum("hi,ijd->hjd", wh, patch_pos)
+    patch_pos = torch.einsum("wj,hjd->hwd", ww, patch_pos)
+    patch_pos = patch_pos.reshape(1, gh * gw, dim).to(pos_embed.dtype)
+    return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
+
+
+def _attention(x: torch.Tensor, attn: Attention, num_heads: int, boundary: int):
+    B, N, D = x.shape
+    hd = D // num_heads
+    qkv = linear(x, attn.qkv).reshape(B, N, 3, num_heads, hd)
+    q, k, v = qkv.unbind(2)  # strided (B, N, h, hd) views, read in place by the kernel
+    out = mha(q, k, v, 1.0 / math.sqrt(hd), boundary=boundary)
+    return linear(out.reshape(B, N, D), attn.proj)
+
+
+def _mlp(x: torch.Tensor, mlp: Mlp, gelu_approx: bool) -> torch.Tensor:
+    y = F.gelu(linear(x, mlp.fc1), approximate="tanh" if gelu_approx else "none")
+    return linear(y, mlp.fc2)
+
+
+def _drop_path(x: torch.Tensor, keep: torch.Tensor, mask: torch.Tensor, boundary: int = 0):
+    """Per-sample stochastic depth. ``mask``: (B,) keep-decisions, or (B, 2)
+    with one decision per packed segment when ``boundary`` is nonzero;
+    kept samples scale by 1/keep."""
+    if boundary:
+        tok = torch.arange(x.shape[1], device=x.device)[None, :]
+        m = torch.where(tok < boundary, mask[:, :1], mask[:, 1:])[..., None]
+    else:
+        m = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    scale = (1.0 / keep).to(x.dtype)
+    return torch.where(m, x * scale, torch.zeros_like(x))
+
+
+def _block(x, blk: Block, cfg: ViTConfig, keep, masks, boundary: int):
+    """One pre-norm block; ``masks`` (2, B[, 2]) or None (no DropPath)."""
+    eps = cfg.layernorm_eps
+    y = _attention(layer_norm(x, blk.norm1, eps), blk.attn, cfg.num_heads, boundary)
+    if masks is not None:
+        y = _drop_path(y, keep, masks[0], boundary)
+    x = x + y
+    y = _mlp(layer_norm(x, blk.norm2, eps), blk.mlp, cfg.gelu_approx)
+    if masks is not None:
+        y = _drop_path(y, keep, masks[1], boundary)
+    return x + y
+
+
+def prepare_tokens(vit: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """Patchify + project + CLS + interpolated position embedding.
+    x: (B, H, W, C) -> (B, 1 + gh*gw, D) in the compute dtype."""
+    cfg = vit.cfg
+    B, H, W, C = x.shape
+    p = cfg.patch_size
+    dt = cfg.compute_dtype
+    w = vit.patch_embed.proj.weight  # (D, C, p, p) -> (p*p*C, D)
+    kernel = w.permute(2, 3, 1, 0).reshape(p * p * C, cfg.embed_dim)
+    tokens = patchify(x.to(dt), p) @ kernel.to(dt) + vit.patch_embed.proj.bias.to(dt)
+    cls = vit.cls_token.to(dt).expand(B, 1, cfg.embed_dim)
+    tokens = torch.cat([cls, tokens], dim=1)
+    pos = interpolate_pos_embed(vit.pos_embed, (H // p, W // p))
+    return tokens + pos.to(dt)
+
+
+def drop_path_masks(
+    cfg: ViTConfig, batch: int, packed: bool, generator: torch.Generator, device,
+) -> torch.Tensor:
+    """Every (layer, branch, sample[, segment]) keep-decision in one draw:
+    (L, 2, B) or (L, 2, B, 2) bool."""
+    keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, device=device)
+    shape = (cfg.depth, 2, batch) + ((2,) if packed else ())
+    keep_p = keeps.reshape((cfg.depth, 1, 1) + ((1,) if packed else ())).expand(shape)
+    return torch.bernoulli(keep_p, generator=generator).bool()
+
+
+def _run_blocks(vit, tokens, generator, deterministic, dp_masks, boundary=0):
+    cfg = vit.cfg
+    keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, device=tokens.device)
+    if deterministic or (dp_masks is None and generator is None):
+        dp_masks = None
+    elif dp_masks is None:
+        dp_masks = drop_path_masks(cfg, tokens.shape[0], bool(boundary), generator, tokens.device)
+    x = tokens
+    for i, blk in enumerate(vit.blocks):
+        x = _block(x, blk, cfg, keeps[i], None if dp_masks is None else dp_masks[i], boundary)
+    return x
+
+
+def _cls_out(vit: VisionTransformer, x: torch.Tensor, index: int) -> torch.Tensor:
+    """Final LayerNorm of one token position (the norm is per token, so
+    this equals normalizing every token and slicing), as f32."""
+    return layer_norm(x[:, index], vit.norm, vit.cfg.layernorm_eps).float()
+
+
+def vit_forward(
+    vit: VisionTransformer,
+    x: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    dp_masks: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, H, W, C) -> final-LN CLS token (B, D) f32. DropPath runs when
+    ``deterministic`` is False: keep-decisions come from ``dp_masks``
+    ((L, 2, B) bool) if given, else from one draw on ``generator``."""
+    out = _run_blocks(vit, prepare_tokens(vit, x), generator, deterministic, dp_masks)
+    return _cls_out(vit, out, 0)
+
+
+def vit_forward_packed(
+    vit: VisionTransformer,
+    xa: torch.Tensor,
+    xb: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    dp_masks: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two crop batches packed into one token sequence; exactly
+    ``vit_forward(xa)``, ``vit_forward(xb)``: attention is block-diagonal at
+    the boundary and DropPath draws one decision per segment
+    (``dp_masks`` (L, 2, B, 2)). Returns (cls_a, cls_b), each (B, D) f32."""
+    ta = prepare_tokens(vit, xa)
+    tb = prepare_tokens(vit, xb)
+    boundary = ta.shape[1]
+    out = _run_blocks(vit, torch.cat([ta, tb], dim=1), generator, deterministic, dp_masks, boundary)
+    return _cls_out(vit, out, 0), _cls_out(vit, out, boundary)

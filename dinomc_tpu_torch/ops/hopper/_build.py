@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), which is loaded
+with ``ctypes``. The library is built at first use into
+``dinomc_tpu_torch/build/`` and named by a hash of the sources and flags, so
+an edited source is rebuilt and a stale library is never loaded. Nothing
+happens at import time: this module imports on a machine without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Kernel launches by name. Each wrapper adds one where it launches its
+# kernel and nowhere else, so a run can show which kernels its path took.
+LAUNCHES: Counter = Counter()
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "dinomc_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
+    "dinomc_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
+    "dinomc_photometric": [_P] * 4 + [_I] * 2 + [_F] * 6 + [_P],
+}
+
+
+def _sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin: the port's CUDA "
+        "kernels (dinomc_tpu_torch/csrc) are built from source at first use"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdinomc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple:
+    """Compile the kernels if this exact source set has no library yet.
+    Returns (path, seconds spent compiling; 0.0 when already built)."""
+    path = library_path()
+    if path.exists():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launches."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name}: kernel takes CUDA tensors (got {t.device}); the plain "
+                "version serves CPU tensors only"
+            )

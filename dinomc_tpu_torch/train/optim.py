@@ -1,0 +1,126 @@
+"""AdamW and gradient transforms for the DINO-MC trainer.
+
+Counterpart of ``dinomc_tpu/train/optim.py`` (AdamW part). Parameters,
+gradients, masks and moments are dictionaries keyed by the student's
+parameter names (``backbone.blocks.0.attn.qkv.weight``, ...). Semantics are
+the JAX package's:
+
+  * two param groups: bias / 1-D leaves get no weight decay
+    (``get_params_groups``, ``utils/utils.py:649-660``);
+  * **per-tensor** clipping by min(1, clip / (||g|| + 1e-6))
+    (``clip_gradients``, ``utils/utils.py:145-154``);
+  * torch AdamW with per-parameter step counts; a frozen parameter (the
+    weight-norm ``g`` under ``norm_last_layer``, the last layer during the
+    freeze epochs) is skipped entirely, as torch skips a ``grad is None``
+    parameter: value, moments and step count stay as they are.
+
+The JAX package stacks the ViT's blocks along a leading depth axis, and
+both rules act on its leaves (``stacked_name``): one joint norm clips all
+blocks' copies of a tensor, and a block's LayerNorm scale, one row of a
+(depth, D) leaf, is decayed. The port keeps one tensor per block, as the
+reference's state dict does, and applies the rules to the stacked groups.
+
+Unlike the functional JAX version, ``clip_gradients_per_tensor`` and
+``adamw_update`` update their tensors in place under ``torch.no_grad()``.
+SGD and LARS are not ported yet (ROADMAP.md queue 1 #13).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+
+
+_BLOCK = re.compile(r"\.blocks\.\d+\.")
+
+
+def stacked_name(name: str) -> str:
+    """The JAX package's leaf that holds this tensor: every block's copy of
+    a tensor is one slice of a leaf stacked along the depth axis
+    (``backbone.blocks.3.norm1.weight`` -> ``backbone.blocks.*.norm1.weight``)."""
+    return _BLOCK.sub(".blocks.*.", name)
+
+
+def wd_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+    """1.0 for regularized leaves, 0.0 for ``*.bias`` and 1-D leaves, the
+    rank taken of the stacked leaf (a block's tensor gains the depth axis)."""
+
+    def ndim(name, p):
+        return p.ndim + (stacked_name(name) != name)
+
+    return {
+        name: 0.0 if (name.endswith("bias") or ndim(name, p) <= 1) else 1.0
+        for name, p in params.items()
+    }
+
+
+def path_mask(params: Mapping[str, torch.Tensor], pred: Callable[[str], bool]) -> Dict[str, float]:
+    """1.0 where the parameter name satisfies ``pred``, else 0.0."""
+    return {name: 1.0 if pred(name) else 0.0 for name in params}
+
+
+@torch.no_grad()
+def clip_gradients_per_tensor(grads: Tensors, clip: float) -> Tensors:
+    """Scale each stacked leaf's gradients in place by
+    min(1, clip / (||g|| + 1e-6)), ||g|| the norm over all of the leaf's
+    tensors. No host sync: the coefficient stays on the device."""
+    groups: Dict[str, List[torch.Tensor]] = {}
+    for name, g in grads.items():
+        groups.setdefault(stacked_name(name), []).append(g)
+    for gs in groups.values():
+        # sum of squares, not vector_norm: torch's CPU norm kernel drifts by
+        # ~1e-4 relative over a 4M-element tensor in float32; sum does not
+        norm = torch.stack([g.float().square().sum() for g in gs]).sum().sqrt()
+        coef = torch.clamp(clip / (norm + 1e-6), max=1.0)
+        for g in gs:
+            g.mul_(coef.to(g.dtype))
+    return grads
+
+
+def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Zero f32 moments and a zero step count per parameter."""
+    return {
+        "mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+        "nu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+        "count": {n: 0 for n in params},
+    }
+
+
+@torch.no_grad()
+def adamw_update(
+    grads: Tensors,
+    state: Dict[str, Dict],
+    params: Mapping[str, torch.Tensor],
+    lr: float,
+    weight_decay: float,
+    wd_mask_tree: Mapping[str, float],
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    frozen_mask: Optional[Mapping[str, float]] = None,
+) -> None:
+    """Torch-AdamW: p -= lr * (mhat / (sqrt(vhat) + eps) + wd * mask * p),
+    in place on ``params`` and ``state``. ``frozen_mask`` (1.0 = frozen)
+    skips a parameter entirely. Bias corrections are computed on the host
+    in f32 from the per-parameter step count."""
+    one = np.float32(1.0)
+    for name, p in params.items():
+        if frozen_mask is not None and frozen_mask[name] > 0.5:
+            continue
+        g = grads[name].float()
+        m, v = state["mu"][name], state["nu"][name]
+        c = state["count"][name] + 1
+        state["count"][name] = c
+        m.add_((g - m) * (1 - b1))
+        v.add_((g * g - v) * (1 - b2))
+        bc1 = float(one - np.float32(b1) ** np.float32(c))
+        bc2 = float(one - np.float32(b2) ** np.float32(c))
+        upd = (m / bc1) / ((v / bc2).sqrt_().add_(eps))
+        if wd_mask_tree[name] and weight_decay:
+            upd.add_(p.float(), alpha=weight_decay)
+        p.sub_((upd * lr).to(p.dtype))

@@ -1,0 +1,116 @@
+"""Training-loop logging: smoothed meters, epoch iteration lines, JSONL.
+
+Counterpart of the parts of ``dinomc_tpu/utils/logging.py`` the DINO CLI
+uses: ``SmoothedValue`` / ``MetricLogger.log_every`` (reference
+``utils/utils.py:239-416``) and ``JsonlLogger`` (``main_dino_mc.py:348-350``).
+The memory readout is ``torch.cuda.memory_allocated`` when a card is in use.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import time
+from collections import defaultdict, deque
+from typing import Dict, Optional
+
+import torch
+
+
+class SmoothedValue:
+    """A series with a smoothing window (median/avg) and global stats."""
+
+    def __init__(self, window_size: int = 20, fmt: str = "{median:.4f} ({global_avg:.4f})"):
+        self.deque = deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value: float, n: int = 1):
+        self.deque.append(value)
+        self.count += n
+        self.total += value * n
+
+    @property
+    def median(self) -> float:
+        d = sorted(self.deque)
+        return d[len(d) // 2] if d else 0.0
+
+    @property
+    def avg(self) -> float:
+        return sum(self.deque) / len(self.deque) if self.deque else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+    @property
+    def max(self) -> float:
+        return max(self.deque) if self.deque else 0.0
+
+    @property
+    def value(self) -> float:
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self) -> str:
+        return self.fmt.format(
+            median=self.median, avg=self.avg, global_avg=self.global_avg,
+            max=self.max, value=self.value,
+        )
+
+
+def _device_mem_mb() -> Optional[float]:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return torch.cuda.memory_allocated() / 1024.0 / 1024.0
+    return None
+
+
+class MetricLogger:
+    def __init__(self, delimiter: str = "  "):
+        self.meters: Dict[str, SmoothedValue] = defaultdict(SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __str__(self):
+        return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
+
+    def log_every(self, iterable, print_freq: int, header: str = "", total: Optional[int] = None):
+        """Iterate with periodic ``header [i/N] eta ... meters time data mem``
+        lines. Host-clock times: a step that does not sync is counted when
+        a later one does."""
+        total = total if total is not None else len(iterable)
+        i = 0
+        start = end = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        data_time = SmoothedValue(fmt="{avg:.4f}")
+        for obj in iterable:
+            data_time.update(time.time() - end)
+            yield obj
+            iter_time.update(time.time() - end)
+            if i % print_freq == 0 or i == total - 1:
+                eta = datetime.timedelta(seconds=int(iter_time.global_avg * (total - i)))
+                mem = _device_mem_mb()
+                mem_str = f"  mem: {mem:.0f}MB" if mem is not None else ""
+                print(f"{header} [{i}/{total}]  eta: {eta}  {self}  "
+                      f"time: {iter_time}  data: {data_time}{mem_str}")
+            i += 1
+            end = time.time()
+        elapsed = time.time() - start
+        print(f"{header} Total time: {datetime.timedelta(seconds=int(elapsed))} "
+              f"({elapsed / max(total, 1):.4f} s / it)")
+
+
+class JsonlLogger:
+    """Append one JSON object per line (reference log.txt format)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def write(self, record: Dict) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record) + "\n")
