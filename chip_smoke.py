@@ -13,7 +13,16 @@ script exits non-zero:
    that cover every branch;
 4. the real entry point, ``dinomc_tpu_torch.cli.train_dino.train_dino``,
    for 5 ViT-S/8 steps (out_dim 65536, batch 8, synthetic images, weights
-   from a seed), with every kernel's launch count over that run.
+   from a seed), with every kernel's launch count over that run;
+5. long-sequence attention K4 (forward), K5 (dQ) and K6 (dK/dV) against
+   their plain version on the card, in bf16, at the segmentation path's
+   shapes (4097 tokens at 512 px, patch 8), past the TPU kernel's 5120 cap,
+   and a few ragged small ones;
+6. the segmentation entry point, ``dinomc_tpu_torch.cli.train_seg.train_seg``,
+   twice at the published widths (ViT-S/8 UPerNet, 512 px, batch 4, 8 UAVid
+   classes, synthetic data, weights from a seed): decoder-only and with the
+   backbone trained, 4 steps and a validation pass each, with the kernels'
+   launch counts over each run.
 
 Then one JSON line with each kernel's launches, error and times, and as the
 last line ``{"ok": true, "device": {...}}``. With no CUDA device it exits
@@ -53,6 +62,20 @@ TRAIN_ARGS = [
     "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
     "--batch_size_per_gpu", "8", "--data_path", "synthetic", "--max_steps", "5",
     "--device", "cuda", "--print_freq", "1", "--num_workers", "4",
+]
+LONG_SHAPES = [  # (what, B, N, heads, head_dim); the first is timed
+    ("ViT-S/8 at 512 px", 4, 4097, 6, 64),
+    ("ViT-S/16 at 512 px", 4, 1025, 6, 64),
+    ("ViT-S/8 at 600 px", 2, 5626, 6, 64),
+    ("ragged d32", 1, 1100, 2, 32),
+    ("ragged d16", 1, 1030, 4, 16),
+]
+SEG_STEPS = 4
+SEG_ARGS = [
+    "--device", "cuda", "--dataset", "uavid", "--data_root", "synthetic",
+    "--arch", "vit_small", "--patch_size", "8", "--image_size", "512",
+    "--batch_size", "4", "--max_steps", str(SEG_STEPS), "--epochs", "1",
+    "--print_freq", "1",
 ]
 
 
@@ -221,6 +244,124 @@ def phase_train(torch, smi):
     return launches
 
 
+def phase_long_attention(torch):
+    from dinomc_tpu_torch.ops.hopper import attention_long as hl
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "rel": 0.0}
+    timing = None
+    for i, (what, B, N, h, d) in enumerate(LONG_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        qkv = torch.randn(B, N, 3, h, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(B, N, h, d, generator=gen, device="cuda").bfloat16()
+        scale = 1.0 / math.sqrt(d)
+        q, k, v = qkv.unbind(2)
+        o, lse = hl.long_attention_fwd(q, k, v, scale)
+        dq, dk, dv = hl.long_attention_bwd(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        ref = hl.long_mha_reference(qr, kr, vr, scale)
+        g_r = torch.autograd.grad(ref, (qr, kr, vr), do, retain_graph=True)
+        torch.cuda.synchronize()
+
+        fwd_err = (o.float() - ref.float()).abs().max().item()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip((dq, dk, dv), g_r)]
+        rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_r))
+        print(f"[long attention] {what}: B={B} N={N} h={h} d={d}  fwd max|diff| "
+              f"{fwd_err:.3e}  dq/dk/dv max abs {errs}  max rel {rel:.3e}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+            raise AssertionError(f"long attention kernels disagree with their plain version at {what}")
+        worst = {"fwd": max(worst["fwd"], fwd_err), "dq": max(worst["dq"], errs[0]),
+                 "dkv": max(worst["dkv"], errs[1], errs[2]), "rel": max(worst["rel"], rel)}
+
+        if i == 0:  # the main path's shape: each kernel against its plain version
+            dob = do.contiguous()
+            _, delta = hl.long_attention_dq(q, k, v, o, lse, dob, scale)
+            timing = {
+                "fwd_ms": _time_ms(torch, lambda: hl.long_attention_fwd(q, k, v, scale)),
+                "fwd_plain_ms": _time_ms(torch, lambda: hl.long_mha_reference(q, k, v, scale)),
+                "dq_ms": _time_ms(torch, lambda: hl.long_attention_dq(q, k, v, o, lse, dob, scale)),
+                "dq_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                    ref, qr, do, retain_graph=True)),
+                "dkv_ms": _time_ms(torch, lambda: hl.long_attention_dkv(
+                    q, k, v, lse, delta, dob, scale)),
+                "dkv_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
+                    ref, (kr, vr), do, retain_graph=True)),
+            }
+            print(f"[long attention] {what} times: "
+                  + "  ".join(f"{k} {v:.4f}" for k, v in timing.items()))
+        del ref, g_r, qr, kr, vr
+    print(f"[long attention] worst: fwd max|diff| {worst['fwd']:.3e} (bound {ATTN_FWD_ATOL}), "
+          f"grad max rel {worst['rel']:.3e} (bound {ATTN_GRAD_RTOL})")
+    return worst, timing
+
+
+def _seg_run(torch, train_backbone: bool, smi):
+    """One ``train_seg`` run; returns (summary, launches over the run)."""
+    from dinomc_tpu_torch.cli.train_seg import get_args_parser, train_seg
+    from dinomc_tpu_torch.ops.hopper import _build
+
+    flag = "true" if train_backbone else "false"
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = get_args_parser().parse_args(
+            SEG_ARGS + ["--train_backbone", flag, "--output_dir", out_dir])
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        summary = train_seg(args)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    med = sorted(summary.step_ms)[len(summary.step_ms) // 2]
+    print(f"[seg train_backbone={flag}] losses {summary.losses}")
+    print(f"[seg train_backbone={flag}] launches over the run: {launches}")
+    print(f"[seg train_backbone={flag}] step ms (CUDA events, augmentation + step): "
+          f"{[round(x, 3) for x in summary.step_ms]}")
+    print(f"[seg train_backbone={flag}] median step {med:.3f} ms, {4 / (med / 1e3):.3f} "
+          f"images/s, peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+          f"val mIoU {summary.best_miou:.4f}, wall {wall:.1f} s  [{smi}]")
+    return summary, launches
+
+
+def phase_seg(torch, smi):
+    from dinomc_tpu_torch.cli.train_seg import get_args_parser
+    from dinomc_tpu_torch.data.seg_datasets import SPECS
+    from dinomc_tpu_torch.models.upernet import UPerNetConfig
+    from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state
+
+    total = {}
+    for train_backbone in (False, True):
+        summary, launches = _seg_run(torch, train_backbone, smi)
+        if len(summary.losses) != SEG_STEPS or not all(math.isfinite(x) for x in summary.losses):
+            raise AssertionError(f"expected {SEG_STEPS} finite losses, got {summary.losses}")
+        if not 0.0 <= summary.scores["miou"] <= 1.0:
+            raise AssertionError(f"validation mIoU {summary.scores['miou']} outside [0, 1]")
+        bwd = ("long_attention_dq", "long_attention_dkv")
+        if launches.get("long_attention_fwd", 0) <= 0:
+            raise AssertionError("kernel long_attention_fwd was not launched by the seg path")
+        for name in bwd:
+            if (launches.get(name, 0) > 0) != train_backbone:
+                raise AssertionError(f"kernel {name} launched {launches.get(name, 0)} times with "
+                                     f"train_backbone={train_backbone}")
+        args = get_args_parser().parse_args(SEG_ARGS)
+        cfg = SegConfig(model=UPerNetConfig(num_classes=SPECS[args.dataset].num_classes))
+        init = dict(init_seg_train_state(cfg, args.seed, "cuda").model.named_parameters())
+        final = dict(summary.state.model.named_parameters())
+        bb = [n for n in final if n.startswith("backbone.")]
+        dec = [n for n in final if not n.startswith("backbone.")]
+        bb_moved = max((final[n] - init[n]).abs().max().item() for n in bb)
+        dec_moved = max((final[n] - init[n]).abs().max().item() for n in dec)
+        print(f"[seg train_backbone={train_backbone}] backbone max|change| {bb_moved:.3e}  "
+              f"decoder max|change| {dec_moved:.3e}")
+        if not dec_moved > 0:
+            raise AssertionError("the decoder did not train")
+        if train_backbone != (bb_moved > 0):
+            raise AssertionError(f"backbone max|change| {bb_moved} with train_backbone={train_backbone}")
+        if not train_backbone and not all(torch.equal(final[n], init[n]) for n in bb):
+            raise AssertionError("the frozen backbone is not bit-identical")
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -231,6 +372,8 @@ def main() -> int:
     fwd_err, grad_err, attn_t = phase_attention(torch)
     photo_err, photo_t = phase_photometric(torch)
     launches = phase_train(torch, smi)
+    long_err, long_t = phase_long_attention(torch)
+    seg_launches = phase_seg(torch, smi)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -249,6 +392,13 @@ def main() -> int:
          "launches": launches.get("photometric", 0), "max_abs_err": photo_err,
          "ms": photo_t["ms"], "plain_ms": photo_t["plain_ms"]},
     ]
+    for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),
+                            ("long_attention_dkv", 187, "dkv")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src + "attention_long.cu",
+            "replaces": f"dinomc_tpu/ops/pallas/attention_long.py:{line}",
+            "launches": seg_launches.get(name, 0), "max_abs_err": long_err[key],
+            "ms": long_t[f"{key}_ms"], "plain_ms": long_t[f"{key}_plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,30 +1,51 @@
 """Train-state checkpoints with restart-from-latest.
 
-Counterpart of ``dinomc_tpu/ckpt/orbax_io.py`` (``CheckpointManager``): the
-whole ``DinoTrainState`` (student, teacher, AdamW moments and counts,
-centre, step, DropPath generator) goes through ``torch.save`` into
-``<dir>/ckpt_<step>.pth``; the newest ``max_to_keep`` files are kept, plus
-every multiple of ``keep_period``. A rerun with the same directory resumes
-from the newest file (the reference's ``restart_from_checkpoint``,
+Counterpart of ``dinomc_tpu/ckpt/orbax_io.py`` (``CheckpointManager``): a
+whole train state goes through ``torch.save`` into
+``<dir>/ckpt_<step>.pth``. For a ``DinoTrainState`` that is the student,
+teacher, AdamW moments and counts, centre, step and DropPath generator; for
+a ``SegTrainState`` the UPerNet (parameters and BatchNorm statistics), AdamW
+state, step and dropout generator. The newest ``max_to_keep`` files are
+kept, plus every multiple of ``keep_period``; with ``best_mode='max'`` the
+``max_to_keep`` files of highest metric are kept instead (the seg trainer's
+best-mIoU checkpoint). A rerun with the same directory resumes from the
+newest file (the reference's ``restart_from_checkpoint``,
 ``utils/utils.py:165-197``). Files are written to a temporary name and
 renamed, so a crash never leaves a half-written checkpoint as the newest.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
+from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pth$")
+TrainState = Union[DinoTrainState, SegTrainState]
 
 
-def state_to_dict(state: DinoTrainState) -> dict:
+def _load_opt_state(opt_state: dict, saved: dict) -> None:
+    for kind in ("mu", "nu"):
+        for name, t in saved[kind].items():
+            opt_state[kind][name].copy_(t)
+    opt_state["count"] = dict(saved["count"])
+
+
+def state_to_dict(state: TrainState) -> dict:
+    if isinstance(state, SegTrainState):
+        return {
+            "step": int(state.step),
+            "model": state.model.state_dict(),
+            "opt_state": state.opt_state,
+            "generator": state.generator.get_state(),
+        }
     return {
         "step": int(state.step),
         "student": state.student.state_dict(),
@@ -36,26 +57,30 @@ def state_to_dict(state: DinoTrainState) -> dict:
 
 
 @torch.no_grad()
-def load_state_dict_into(state: DinoTrainState, saved: dict) -> None:
+def load_state_dict_into(state: TrainState, saved: dict) -> None:
     """Restore ``saved`` into ``state`` in place, on the state's device."""
-    state.student.load_state_dict(saved["student"], strict=True)
-    state.teacher.load_state_dict(saved["teacher"], strict=True)
-    dev = state.center.device
-    for kind in ("mu", "nu"):
-        for name, t in saved["opt_state"][kind].items():
-            state.opt_state[kind][name].copy_(t)
-    state.opt_state["count"] = dict(saved["opt_state"]["count"])
-    state.center = saved["center"].to(dev)
+    _load_opt_state(state.opt_state, saved["opt_state"])
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
+    if isinstance(state, SegTrainState):
+        state.model.load_state_dict(saved["model"], strict=True)
+        return
+    state.student.load_state_dict(saved["student"], strict=True)
+    state.teacher.load_state_dict(saved["teacher"], strict=True)
+    state.center = saved["center"].to(state.center.device)
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 2, keep_period: Optional[int] = None):
+    def __init__(self, directory: str, max_to_keep: int = 2, keep_period: Optional[int] = None,
+                 best_mode: Optional[str] = None):
+        if best_mode not in (None, "max"):
+            raise ValueError(f"best_mode must be None or 'max', got {best_mode!r}")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
+        self.best_mode = best_mode
+        self._metrics_path = self.dir / "metrics.json"
 
     def steps(self) -> List[int]:
         found = (_NAME.match(p.name) for p in self.dir.iterdir())
@@ -68,18 +93,35 @@ class CheckpointManager:
     def path(self, step: int) -> Path:
         return self.dir / f"ckpt_{step:08d}.pth"
 
-    def save(self, step: int, state: DinoTrainState) -> Path:
+    def metrics(self) -> dict:
+        """{step: metric} of the kept checkpoints saved with a metric."""
+        if not self._metrics_path.exists():
+            return {}
+        return {int(k): v for k, v in json.loads(self._metrics_path.read_text()).items()}
+
+    def save(self, step: int, state: TrainState, metric: Optional[float] = None) -> Path:
         path = self.path(step)
         tmp = path.with_suffix(".tmp")
         torch.save(state_to_dict(state), tmp)
         os.replace(tmp, path)
         steps = self.steps()
-        for s in steps[: -self.max_to_keep]:
+        metrics = self.metrics()
+        if metric is not None:
+            metrics[step] = float(metric)
+        if self.best_mode:  # best first, the newer of equal metrics first
+            ranked = sorted(steps, key=lambda s: (metrics.get(s, float("-inf")), s), reverse=True)
+            drop = ranked[self.max_to_keep:]
+        else:
+            drop = steps[: -self.max_to_keep]
+        for s in drop:
             if not (self.keep_period and s % self.keep_period == 0):
                 self.path(s).unlink()
+                metrics.pop(s, None)
+        if metrics:
+            self._metrics_path.write_text(json.dumps({str(k): v for k, v in metrics.items()}))
         return path
 
-    def restore(self, state: DinoTrainState) -> bool:
+    def restore(self, state: TrainState) -> bool:
         """Load the newest checkpoint into ``state``; False when there is
         none."""
         step = self.latest_step()

@@ -1,11 +1,12 @@
 """Carry JAX-package parameters into the port.
 
 The JAX trees go through the JAX package's own exporters,
-``dinomc_tpu.ckpt.torch_export.vit_state_dict`` and
-``dino_head_state_dict`` (host-only, jax-free), which emit the reference's
-timm/DINO state-dict layout; the port's modules use the same names, so
-each load is ``load_state_dict(strict=True)``. Inputs are numpy trees (or
-anything ``np.asarray`` reads, such as host copies of JAX arrays).
+``dinomc_tpu.ckpt.torch_export.vit_state_dict``, ``dino_head_state_dict``
+and ``upernet_state_dict`` (host-only, jax-free), which emit the
+reference's timm/DINO/mmseg state-dict layout; the port's modules use the
+same names, so each load is ``load_state_dict(strict=True)``. Inputs are
+numpy trees (or anything ``np.asarray`` reads, such as host copies of JAX
+arrays). A UPerNet takes a ``(params, bn_state)`` pair.
 """
 
 from __future__ import annotations
@@ -16,11 +17,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dinomc_tpu.ckpt.torch_export import dino_head_state_dict, vit_state_dict
+from dinomc_tpu.ckpt.torch_export import (
+    dino_head_state_dict,
+    upernet_state_dict,
+    vit_state_dict,
+)
 from dinomc_tpu_torch.models.dino_head import DINOHead
+from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
 from dinomc_tpu_torch.train import optim
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
+from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
 
 def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -29,7 +36,10 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
-    a ViT tree, a DINO-head tree, or a ``{'backbone', 'head'}`` tree."""
+    a ViT tree, a DINO-head tree, a ``{'backbone', 'head'}`` tree, or a
+    UPerNet's ``(params, bn_state)``."""
+    if isinstance(module, UPerNet):
+        return _tensors(upernet_state_dict(*params))
     if isinstance(module, VisionTransformer):
         return _tensors(vit_state_dict(params))
     if isinstance(module, DINOHead):
@@ -49,7 +59,15 @@ def load_jax_params(module_or_state, jax_params) -> None:
     any object with ``student``, ``teacher``, ``center`` and ``step``):
     student, teacher, centre and step are copied and the AdamW moments and
     counts start from zero, as the JAX package's freshly initialized state
-    has them."""
+    has them. For a ``SegTrainState``, ``jax_params`` is a JAX
+    ``SegTrainState``: parameters, BatchNorm statistics and step are copied,
+    the AdamW state starts from zero."""
+    if isinstance(module_or_state, SegTrainState):
+        st = module_or_state
+        load_jax_params(st.model, (jax_params.params, jax_params.bn_state))
+        st.step = int(np.asarray(jax_params.step))
+        st.opt_state = optim.adamw_init(dict(st.model.named_parameters()))
+        return
     if isinstance(module_or_state, DinoTrainState):
         st = module_or_state
         load_jax_params(st.student, jax_params.student)

@@ -12,8 +12,8 @@ every matmul weight cast to ``compute_dtype`` at use. Casts are explicit;
 no autocast.
 
 Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi``,
-``vit_forward_sp``, ``vit_intermediate_layers``, ``vit_last_selfattention``,
-remat policies and ``mlp_impl='fused'``.
+``vit_forward_sp``, ``vit_last_selfattention``, remat policies and
+``mlp_impl='fused'``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -359,3 +359,26 @@ def vit_forward_packed(
     boundary = ta.shape[1]
     out = _run_blocks(vit, torch.cat([ta, tb], dim=1), generator, deterministic, dp_masks, boundary)
     return _cls_out(vit, out, 0), _cls_out(vit, out, boundary)
+
+
+def vit_intermediate_layers(
+    vit: VisionTransformer,
+    x: torch.Tensor,
+    out_indices: Sequence[int] = (3, 5, 7, 11),
+    apply_norm: bool = True,
+) -> torch.Tensor:
+    """Token maps of the blocks in ``out_indices``, without DropPath:
+    (len(out_indices), B, N+1, D) f32. ``apply_norm`` applies the final
+    LayerNorm to each (the reference's ``get_intermediate_layers``);
+    ``apply_norm=False`` taps the raw block outputs, as the segmentation
+    backbone does (``DinoMCBackbone.forward``)."""
+    cfg = vit.cfg
+    x = prepare_tokens(vit, x)
+    taps = {}
+    for i, blk in enumerate(vit.blocks[: max(out_indices) + 1]):
+        x = _block(x, blk, cfg, None, None, 0)
+        taps[i] = x
+    out = [taps[i] for i in out_indices]
+    if apply_norm:
+        out = [layer_norm(t, vit.norm, cfg.layernorm_eps) for t in out]
+    return torch.stack([t.float() for t in out])

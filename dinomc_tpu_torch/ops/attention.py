@@ -1,11 +1,15 @@
 """Multi-head attention dispatch.
 
 Counterpart of ``dinomc_tpu/ops/attention.py``. ``mha`` sends CUDA tensors
-to the hand-written kernels (``ops/hopper/attention.py``) and CPU tensors to
-their plain version; ``dense_attention`` is the reference formulation, held
-against the JAX package's by the tests and called by nothing on the main
-path. The JAX package's ``ring``, ``flash`` and ``fused_long`` routes are
-not ported yet (ROADMAP.md, TPU kernels to port, #3 and multi-device #17).
+to the hand-written kernels and CPU tensors to their plain versions: padded
+lengths up to ``MAX_FUSED_LEN`` take the fused kernel
+(``ops/hopper/attention.py``), longer ones the long-sequence kernel
+(``ops/hopper/attention_long.py``), with no upper cap. That kernel also
+stands in for the stock TPU flash kernel the JAX package calls past 5120
+tokens, so its three length tiers become two. ``dense_attention`` is the
+reference formulation, held against the JAX package's by the tests and
+called by nothing on the main path. The JAX package's ``ring`` route is not
+ported yet (ROADMAP.md multi-device #17).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Optional
 import torch
 
 from dinomc_tpu_torch.ops.hopper.attention import MAX_FUSED_LEN, _pad_len, fused_mha
+from dinomc_tpu_torch.ops.hopper.attention_long import long_mha
 
 
 def dense_attention(
@@ -43,16 +48,16 @@ def mha(
     boundary: int = 0,
 ) -> torch.Tensor:
     """Multi-head attention over (B, N, heads, head_dim): the fused kernel
-    for CUDA tensors, its plain version for CPU tensors (``fused_mha``).
-
-    Sequences past ``MAX_FUSED_LEN`` padded tokens take the JAX package's
-    long-sequence kernel (K4-K6), which is not ported yet: they raise on
-    every device."""
+    (``fused_mha``) for padded N <= ``MAX_FUSED_LEN``, the long-sequence
+    kernel (``long_mha``) above it; each runs its plain version on CPU
+    tensors. Crop packing (``boundary``) exists only on the fused route."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if _pad_len(q.shape[1]) > MAX_FUSED_LEN:
-        raise NotImplementedError(
-            f"sequence of {q.shape[1]} tokens: the long-sequence attention "
-            "(K4-K6) is not ported yet (ROADMAP.md, TPU kernels to port #3)"
+    if _pad_len(q.shape[1]) <= MAX_FUSED_LEN:
+        return fused_mha(q, k, v, scale, boundary)
+    if boundary:
+        raise ValueError(
+            f"crop packing (boundary={boundary}) is not supported for a sequence "
+            f"of {q.shape[1]} tokens (long-sequence attention)"
         )
-    return fused_mha(q, k, v, scale, boundary)
+    return long_mha(q, k, v, scale)

@@ -10,8 +10,10 @@ samples outside the input zeroed), clip to [0, 1], horizontal flip, then
 the photometric chain (``ops/hopper/augment.fused_photometric``). Images
 are NHWC at the public functions, as in the JAX package.
 
-``multicrop_augment_tp`` (DINO-TP) is not ported yet (ROADMAP.md, queue 1
-#10).
+The unfused ``color_jitter`` and ``normalize`` serve the segmentation
+transform (``data/seg_datasets.augment_batch``), with their draws apart
+(``draw_color_jitter``). ``multicrop_augment_tp`` (DINO-TP) is not ported
+yet (ROADMAP.md, queue 1 #10).
 """
 
 from __future__ import annotations
@@ -26,14 +28,17 @@ from dinomc_tpu_torch.ops.hopper.augment import (
     IMAGENET_MEAN,
     IMAGENET_STD,
     P_FLIP,
+    _gray,
     draw_photometric_params,
     fused_photometric,
+    hue_shift,
 )
 
 __all__ = [
     "IMAGENET_MEAN", "IMAGENET_STD", "MultiCropConfig", "CropDraw",
     "draw_crop_boxes", "draw_multicrop", "resize_weights",
-    "random_resized_crop", "multicrop_augment",
+    "random_resized_crop", "multicrop_augment", "JitterDraw",
+    "draw_color_jitter", "color_jitter", "normalize",
 ]
 
 _F32_EPS = float(torch.finfo(torch.float32).eps)
@@ -191,3 +196,61 @@ def multicrop_augment(
         _crop(planar, draws[2 + i], s, "bilinear") for i, s in enumerate(cfg.local_sizes)
     )
     return torch.stack(g, dim=0), locals_
+
+
+@dataclasses.dataclass
+class JitterDraw:
+    """Per-sample ColorJitter draws, each (B,): brightness, contrast and
+    saturation factors, and hue shift."""
+
+    fb: torch.Tensor
+    fc: torch.Tensor
+    fs: torch.Tensor
+    fh: torch.Tensor
+
+
+def draw_color_jitter(
+    gen: torch.Generator, B: int, brightness: float, contrast: float,
+    saturation: float, hue: float, device=None,
+) -> JitterDraw:
+    dev = device if device is not None else gen.device
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(B, generator=gen, device=dev)
+
+    return JitterDraw(
+        fb=uniform(1 - brightness, 1 + brightness),
+        fc=uniform(1 - contrast, 1 + contrast),
+        fs=uniform(1 - saturation, 1 + saturation),
+        fh=uniform(-hue, hue),
+    )
+
+
+def color_jitter(images: torch.Tensor, d: JitterDraw) -> torch.Tensor:
+    """torchvision ColorJitter over NHWC f32 images in [0, 1], in the JAX
+    package's fixed brightness, contrast, saturation, hue order
+    (``dinomc_tpu/ops/augment.color_jitter``), applied to every sample, as
+    the segmentation transform calls it (``p=1``). The hue stage always
+    runs: every segmentation dataset jitters hue (the JAX package skips the
+    stage for a zero hue range)."""
+    col = lambda f: f.view(-1, 1, 1, 1)  # noqa: E731
+
+    def gray(x):
+        return _gray(x[..., 0], x[..., 1], x[..., 2])[..., None]
+
+    x = (images * col(d.fb)).clamp(0.0, 1.0)
+    mean_gray = gray(x).mean(dim=(1, 2, 3), keepdim=True)
+    x = (col(d.fc) * x + (1 - col(d.fc)) * mean_gray).clamp(0.0, 1.0)
+    x = (col(d.fs) * x + (1 - col(d.fs)) * gray(x)).clamp(0.0, 1.0)
+    x = torch.stack(hue_shift(x[..., 0], x[..., 1], x[..., 2], d.fh.view(-1, 1, 1)), dim=-1)
+    return x.clamp(0.0, 1.0)
+
+
+def normalize(
+    images: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
+    std: Sequence[float] = IMAGENET_STD,
+) -> torch.Tensor:
+    """(x - mean) / std over the last (channel) axis."""
+    m = torch.tensor(mean, dtype=torch.float32).to(images.device, non_blocking=True)
+    s = torch.tensor(std, dtype=torch.float32).to(images.device, non_blocking=True)
+    return (images - m) / s

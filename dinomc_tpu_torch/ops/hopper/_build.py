@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+``nvcc`` compiles each ``csrc/*.cu`` to an object, one process per source,
+all started together, and links them into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), which is loaded
-with ``ctypes``. The library is built at first use into
-``dinomc_tpu_torch/build/`` and named by a hash of the sources and flags, so
-an edited source is rebuilt and a stale library is never loaded. Nothing
-happens at import time: this module imports on a machine without CUDA.
+with ``ctypes``. Headers (``csrc/*.cuh``) are included by the sources, never
+compiled on their own. The library is built at first use into
+``dinomc_tpu_torch/build/`` and named by a hash of the flags, the sources and
+the headers, so an edited file is rebuilt and a stale library is never
+loaded. Nothing happens at import time: this module imports on a machine
+without CUDA.
 """
 
 from __future__ import annotations
@@ -25,10 +28,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # Kernel launches by name. Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show which kernels its path took.
@@ -39,11 +40,21 @@ _SIGNATURES = {
     "dinomc_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
     "dinomc_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
     "dinomc_photometric": [_P] * 4 + [_I] * 2 + [_F] * 6 + [_P],
+    "dinomc_long_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "dinomc_long_attn_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "dinomc_long_attn_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
 }
 
 
 def _sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    """The translation units nvcc compiles."""
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _hashed_files() -> list:
+    """Everything the library is built from: sources and the headers they
+    include."""
+    return _sources() + sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -62,10 +73,31 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdinomc_kernels_{h.hexdigest()[:16]}.so"
+
+
+def compile_commands(nvcc: str, obj_dir: Path) -> list:
+    """One ``nvcc -c`` command per source, each writing ``obj_dir/<stem>.o``."""
+    return [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj_dir / f"{src.stem}.o")]
+            for src in _sources()]
+
+
+def link_command(nvcc: str, obj_dir: Path, out: Path) -> list:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+            *(str(obj_dir / f"{src.stem}.o") for src in _sources())]
+
+
+def _run_all(cmds: list) -> None:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"{' '.join(c)}\n{o}" for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def build() -> tuple:
@@ -74,16 +106,17 @@ def build() -> tuple:
     path = library_path()
     if path.exists():
         return path, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    obj_dir = path.with_suffix(f".{os.getpid()}.obj")
+    obj_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
+    try:
+        _run_all(compile_commands(nvcc, obj_dir))
+        _run_all([link_command(nvcc, obj_dir, tmp)])
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
     return path, time.perf_counter() - t0
 
 

@@ -48,18 +48,19 @@ def fused_mha_reference(
     return torch.einsum("bhnm,bmhd->bnhd", p.float(), v.float()).to(q.dtype)
 
 
-def _kernel_args(q, k, v):
-    """Validate K1/K2 inputs; returns (q, k, v, strides), copying only when
-    the three tensors do not share a kernel-readable layout."""
-    _build.require_cuda("fused_mha", q, k, v)
+def _kernel_args(q, k, v, name: str = "fused_mha"):
+    """Validate the inputs of an attention kernel (K1/K2, K4-K6); returns
+    (q, k, v, strides), copying only when the three tensors do not share a
+    kernel-readable layout."""
+    _build.require_cuda(name, q, k, v)
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"fused_mha kernel takes bf16 q/k/v (got {q.dtype})")
+        raise TypeError(f"{name} kernel takes bf16 q/k/v (got {q.dtype})")
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
-        raise ValueError(f"fused_mha: q/k/v must share one (B, N, h, d) shape, got "
+        raise ValueError(f"{name}: q/k/v must share one (B, N, h, d) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     d = q.shape[-1]
     if d not in HEAD_DIMS:
-        raise ValueError(f"fused_mha kernel supports head_dim {HEAD_DIMS}, got {d}")
+        raise ValueError(f"{name} kernel supports head_dim {HEAD_DIMS}, got {d}")
     ok = (
         q.stride() == k.stride() == v.stride()
         and q.stride(-1) == 1

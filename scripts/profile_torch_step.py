@@ -4,16 +4,20 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python scripts/profile_torch_step.py [--out_dir output_dir/profile]
+    python scripts/profile_torch_step.py --task seg [--train_backbone]
 
-It drives the port's DINO-MC step (``dinomc_tpu_torch``) at ViT-S/8, out_dim
-65536, batch 8, with weights from a seed and random images made on the
-device, with the CLI's flag defaults, but without its loader and logging.
-After 3 warm-up steps it takes two windows:
+``--task dino`` (the default) drives the port's DINO-MC step
+(``dinomc_tpu_torch``) at ViT-S/8, out_dim 65536, batch 8; ``--task seg``
+its UPerNet fine-tune step at ViT-S/8, 512 px (4097 tokens), batch 4, 8
+classes, decoder-only unless ``--train_backbone``. Weights come from a
+seed and random images are made on the device; the CLIs' flag defaults
+apply, but not their loaders and logging. After 3 warm-up steps it takes
+two windows:
 
 1. **unprofiled**, 5 steps: CUDA events split each step into
-   augmentation, teacher + student forward and backward, and clip + AdamW +
-   EMA; the host clock, with the device synchronized, times the whole step.
-   Medians are reported.
+   augmentation, forward and backward (DINO: teacher + student), and the
+   optimizer (DINO: clip + AdamW + EMA; seg: AdamW); the host clock, with
+   the device synchronized, times the whole step. Medians are reported.
 2. **profiled**, 3 steps under ``torch.profiler``. From the
    exported trace: device busy time, the union of kernel, memcpy and memset
    intervals (user annotations are not device work and are left out); the
@@ -24,7 +28,8 @@ After 3 warm-up steps it takes two windows:
    step is derived as 1 - busy per step / unprofiled wall per step.
 
 Also counted per profiled step: device kernels, pageable host-to-device
-copies, stream synchronizations, and launches of each hand-written kernel.
+copies, stream synchronizations, launches of each hand-written kernel, and
+the device time of each (from the trace, by kernel function name).
 Writes ``summary.json``, ``ops.txt`` (the profiler's operator table) and
 ``trace.json.gz`` into ``--out_dir``, and prints the summary.
 """
@@ -45,17 +50,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dinomc_tpu_torch.cli.train_dino import (  # noqa: E402
-    build_config, build_schedules, get_args_parser,
-)
-from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment  # noqa: E402
 from dinomc_tpu_torch.ops.hopper import _build  # noqa: E402
-from dinomc_tpu_torch.train.dino_trainer import (  # noqa: E402
-    _finish_step, dino_loss_and_grads, init_dino_train_state,
-)
 
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
-BATCH, WARMUP, STEPS, PROFILE_STEPS = 8, 3, 5, 3
+WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
+# hand-written kernels, by the prefix of their CUDA function names
+KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_", "long_fwd_kernel", "long_dq_kernel",
+                "long_dkv_kernel", "mean_gray_kernel", "photometric_kernel")
 
 
 def _busy_and_span(events):
@@ -72,9 +73,80 @@ def _busy_and_span(events):
     return busy / 1e3, (max(b for _, b in iv) - iv[0][0]) / 1e3
 
 
+def _dino_step(dev):
+    """The DINO-MC step at batch 8; returns (step(ev), batch, split names)."""
+    from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
+    from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
+    from dinomc_tpu_torch.train.dino_trainer import (
+        _finish_step, dino_loss_and_grads, init_dino_train_state,
+    )
+
+    batch = 8
+    args = get_args_parser().parse_args([
+        "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
+        "--batch_size_per_gpu", str(batch),
+    ])
+    niter = 1000
+    mc_cfg, cfg = build_config(args, niter)
+    sch = build_schedules(args, batch, niter)
+    state = init_dino_train_state(cfg, args.seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    images = torch.rand(batch, args.image_size, args.image_size, 3, generator=gen, device=dev)
+
+    def step(ev):
+        ev[0].record()
+        draws = draw_multicrop(gen, batch, args.image_size, args.image_size, mc_cfg, device=dev)
+        g, locs = multicrop_augment(images, draws, mc_cfg)
+        ev[1].record()
+        it, epoch = state.step, state.step // niter
+        loss, grads, center = dino_loss_and_grads(
+            state, g, locs, float(sch.teacher_temp[epoch]), state.generator, cfg)
+        ev[2].record()
+        _finish_step(state, grads, loss, center, float(sch.lr[it]), float(sch.wd[it]),
+                     float(sch.teacher_momentum[it]), epoch, cfg)
+        ev[3].record()
+
+    return step, batch, ("aug", "fwd_bwd", "clip_adamw_ema")
+
+
+def _seg_step(dev, train_backbone: bool):
+    """The UPerNet fine-tune step at 512 px, batch 4; as ``_dino_step``."""
+    from dinomc_tpu_torch.cli.train_seg import get_args_parser
+    from dinomc_tpu_torch.data import seg_datasets as sd
+    from dinomc_tpu_torch.models.upernet import UPerNetConfig
+    from dinomc_tpu_torch.train.seg_trainer import (
+        SegConfig, finish_seg_step, init_seg_train_state, seg_loss_and_grads,
+    )
+
+    batch, size = 4, 512
+    args = get_args_parser().parse_args([])
+    spec = sd.SPECS["uavid"]
+    cfg = SegConfig(model=UPerNetConfig(num_classes=spec.num_classes),
+                    train_backbone=train_backbone)
+    state = init_seg_train_state(cfg, args.seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    images = torch.rand(batch, size, size, 3, generator=gen, device=dev)
+    masks = torch.randint(0, spec.num_classes, (batch, size, size), generator=gen, device=dev)
+
+    def step(ev):
+        ev[0].record()
+        draws = sd.draw_seg_augment(gen, batch, spec, dev)
+        imgs, msks = sd.augment_batch(images, masks, spec, draws)
+        ev[1].record()
+        _, _, grads = seg_loss_and_grads(state, imgs, msks, cfg)
+        ev[2].record()
+        finish_seg_step(state, grads, args.lr, args.weight_decay, cfg)
+        ev[3].record()
+
+    return step, batch, ("aug", "fwd_bwd", "adamw")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out_dir", default="output_dir/profile")
+    p.add_argument("--task", default="dino", choices=["dino", "seg"])
+    p.add_argument("--train_backbone", action="store_true",
+                   help="seg: train the ViT too (default: decoder-only)")
     opt = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: torch sees no CUDA device")
@@ -85,35 +157,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
 
-    args = get_args_parser().parse_args([
-        "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
-        "--batch_size_per_gpu", str(BATCH),
-    ])
-    niter = 1000
-    mc_cfg, cfg = build_config(args, niter)
-    sch = build_schedules(args, BATCH, niter)
     dev = torch.device("cuda")
-    state = init_dino_train_state(cfg, args.seed, dev)
-    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    images = torch.rand(BATCH, args.image_size, args.image_size, 3, generator=gen, device=dev)
+    if opt.task == "seg":
+        step_ev, batch, parts = _seg_step(dev, opt.train_backbone)
+    else:
+        step_ev, batch, parts = _dino_step(dev)
 
     def step(ev=None):
-        if ev:
-            ev[0].record()
-        draws = draw_multicrop(gen, BATCH, args.image_size, args.image_size, mc_cfg, device=dev)
-        g, locs = multicrop_augment(images, draws, mc_cfg)
-        if ev:
-            ev[1].record()
-        it, epoch = state.step, state.step // niter
-        loss, grads, center = dino_loss_and_grads(
-            state, g, locs, float(sch.teacher_temp[epoch]), state.generator, cfg)
-        if ev:
-            ev[2].record()
-        _finish_step(state, grads, loss, center, float(sch.lr[it]), float(sch.wd[it]),
-                     float(sch.teacher_momentum[it]), epoch, cfg)
-        if ev:
-            ev[3].record()
-        return loss
+        step_ev(ev or [torch.cuda.Event() for _ in range(4)])
 
     for _ in range(WARMUP):
         step()
@@ -152,17 +203,22 @@ def main() -> int:
     busy, span = _busy_and_span(dev_events)
     n = PROFILE_STEPS
     per_step = lambda pred: sum(1 for e in events if pred(e)) / n  # noqa: E731
+    kernel_ms = {
+        f: sum(e["dur"] for e in dev_events if f in e["name"]) / 1e3 / n
+        for f in KERNEL_FUNCS
+    }
     summary = {
         "card": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "batch": BATCH,
+        "task": opt.task + ("+backbone" if opt.train_backbone else ""),
+        "batch": batch,
         "unprofiled_ms": {
-            "aug": med[0], "fwd_bwd": med[1], "clip_adamw_ema": med[2],
+            **dict(zip(parts, med)),
             "events_total": sum(med), "wall": statistics.median(wall),
             "wall_all": wall,
         },
-        "images_per_s": BATCH / (statistics.median(wall) / 1e3),
+        "images_per_s": batch / (statistics.median(wall) / 1e3),
         "profiled": {
             "steps": n,
             "wall_ms_per_step": prof_wall,
@@ -174,6 +230,7 @@ def main() -> int:
                 lambda e: e.get("cat") == "gpu_memcpy" and "Pageable -> Device" in e["name"]),
             "stream_syncs_per_step": per_step(lambda e: e["name"] == "cudaStreamSynchronize"),
             "launches": launches,
+            "kernel_ms_per_step": {k: v for k, v in kernel_ms.items() if v},
         },
         "derived_unprofiled_idle_share": 1.0 - (busy / n) / statistics.median(wall),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,

@@ -7,6 +7,8 @@ the ``cuda_device`` fixture, which skips them on a machine without a card;
 they run on the card with ``python -m pytest tests/test_torch_*.py -m cuda``.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -50,3 +52,18 @@ def assert_state_dicts_close(ours, ref, atol, what=""):
             n(ours[k]), np.asarray(ref[k], np.float32), atol=atol, rtol=0,
             err_msg=f"{what}{k}",
         )
+
+
+def write_seg_folder(root, n, size, spec, seed):
+    """``n`` random RGB images and palette masks under root/{images,masks}."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("images", "masks"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    palette = np.asarray(spec.palette, np.uint8)
+    for i in range(n):
+        img = rng.integers(0, 256, (size, size + 3, 3), dtype=np.uint8)
+        Image.fromarray(img).save(os.path.join(root, "images", f"tile_{i}.png"))
+        mask = palette[rng.integers(0, spec.num_classes, (size, size + 3))]
+        Image.fromarray(mask).save(os.path.join(root, "masks", f"tile_{i}.png"))

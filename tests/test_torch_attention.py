@@ -86,12 +86,15 @@ def test_mha_on_cpu_runs_the_plain_version():
 
 
 def test_mha_refuses_unported_impls():
-    """Past MAX_FUSED_LEN padded tokens the JAX package switches to its
-    long-sequence kernel (K4-K6), which waits: the port raises on any device."""
+    """Past MAX_FUSED_LEN padded tokens ``mha`` takes the long-sequence
+    route (K4-K6), which has no crop packing: a ``boundary`` there raises,
+    as the JAX package's ``fused_long`` route does."""
     rng = np.random.default_rng(0)
     q = t(rng.standard_normal((1, hatt.MAX_FUSED_LEN + 1, 1, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.mha(q, q, q)
+    with pytest.raises(ValueError, match="boundary"):
+        tatt.mha(q, q, q, boundary=100)
+    out = tatt.mha(q, q, q)
+    assert out.shape == q.shape and torch.isfinite(out).all()
     tatt.mha(q[:, : hatt.MAX_FUSED_LEN], q[:, : hatt.MAX_FUSED_LEN], q[:, : hatt.MAX_FUSED_LEN])
 
 
