@@ -22,11 +22,37 @@ script exits non-zero:
    twice at the published widths (ViT-S/8 UPerNet, 512 px, batch 4, 8 UAVid
    classes, synthetic data, weights from a seed): decoder-only and with the
    backbone trained, 4 steps and a validation pass each, with the kernels'
-   launch counts over each run.
+   launch counts over each run;
+7. Swin window attention K7 (forward) and K8 (backward, dbias included)
+   against their plain version on the card, in bf16, at the four stage
+   shapes of Swin-T at 224 px (16 images), the 184 px stage-1 shape (shift +
+   pad masks), the 84 px stage-4 shape (a pad-only mask) and a ragged small
+   one; every 224 px stage timed as kernel, plain version and
+   ``F.scaled_dot_product_attention`` with the float mask bias + mask, on
+   the device and, apart, with the host's launch cost in;
+8. the pretraining entry point again, for 5 Swin-T steps (``--arch swin_t``,
+   out_dim 65536, batch 8), with K3, K7 and K8 launched exactly as often as
+   the configuration implies and no other kernel launched.
 
-Then one JSON line with each kernel's launches, error and times, and as the
-last line ``{"ok": true, "device": {...}}``. With no CUDA device it exits
-with 1 and prints no result.
+Then one JSON line with each kernel's launches, error, times, bound and
+library time, and as the last line ``{"ok": true, "device": {...}}``. With
+no CUDA device it exits with 1 and prints no result.
+
+Every time in that line is device time: CUDA events around 10 calls
+(after 2 warm-up calls) queued behind a spin kernel (``torch.cuda._sleep``)
+that holds the card until the host has issued them all, so the card runs
+them back to back and the host's cost of issuing them is not in it; the
+script checks that the card was still spinning when the last call was
+queued, and fails if it never was. A ``host_`` time (phase 7) is CUDA
+events around 10 calls issued back to back with no spin kernel, so it also
+holds the host's cost of issuing them where that exceeds the device's.
+
+Each kernel's bound is the least time the card could take for the work:
+the larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s and its operations over the peak rate of their
+type (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside them),
+from the H100 SXM data sheet. Its library time is one PyTorch call that
+computes the same function, timed here and used nowhere in the port.
 """
 
 from __future__ import annotations
@@ -71,6 +97,23 @@ LONG_SHAPES = [  # (what, B, N, heads, head_dim); the first is timed
     ("ragged d16", 1, 1030, 4, 16),
 ]
 SEG_STEPS = 4
+SWIN_SHAPES = [  # (what, windows, heads, map side, shift); the first four are timed
+    ("stage 1, 224 px", 1024, 3, 56, 3),
+    ("stage 2, 224 px", 256, 6, 28, 3),
+    ("stage 3, 224 px", 64, 12, 14, 3),
+    ("stage 4, 224 px", 16, 24, 7, 0),
+    ("stage 1, 184 px", 8 * 49, 3, 46, 3),
+    ("stage 4, 84 px", 8, 24, 3, 0),
+    ("ragged small", 8, 2, 10, 3),
+]
+SWIN_TRAIN_ARGS = [
+    "--arch", "swin_t", "--out_dim", "65536", "--batch_size_per_gpu", "8",
+    "--data_path", "synthetic", "--max_steps", "5", "--device", "cuda",
+    "--print_freq", "1", "--num_workers", "4",
+]
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 SEG_ARGS = [
     "--device", "cuda", "--dataset", "uavid", "--data_root", "synthetic",
     "--arch", "vit_small", "--patch_size", "8", "--image_size", "512",
@@ -79,7 +122,56 @@ SEG_ARGS = [
 ]
 
 
-def _time_ms(torch, fn, iters=10, warmup=2) -> float:
+_SPIN_CYCLES_PER_MS = []
+
+
+def _spin_cycles_per_ms(torch) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond, read once."""
+    if not _SPIN_CYCLES_PER_MS:
+        cycles = 20_000_000
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        b.synchronize()
+        _SPIN_CYCLES_PER_MS.append(cycles / a.elapsed_time(b))
+    return _SPIN_CYCLES_PER_MS[0]
+
+
+def _time_ms(torch, fn, iters=10, warmup=2, tries=5) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``iters`` calls
+    queued behind a spin kernel twice as long as the host took to issue
+    them, so the card runs them back to back. Valid only if the card was
+    still spinning when the last call was queued; else it tries again with
+    a longer spin and half the calls, and raises after ``tries``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / iters  # a call, on the host
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        spin_ms = 2 ** (attempt + 1) * issue_ms * iters + 1.0
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms(torch)))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        queued = not a.query()  # the card is still spinning: nothing ran yet
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / iters
+        iters = max(1, iters // 2)
+    raise AssertionError("the host never got ahead of the card: a timed call syncs with it")
+
+
+def _host_ms(torch, fn, iters=10, warmup=2) -> float:
+    """ms of one call of ``fn`` between CUDA events around ``iters`` calls:
+    device time, or the host's cost of issuing them where that is larger."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,6 +182,37 @@ def _time_ms(torch, fn, iters=10, warmup=2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def _fmt(times: dict) -> str:
+    """``key value`` pairs of a phase's times; a bound prints as ms (what)."""
+    return "  ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v[0]:.4f} ({v[1]})"
+                     for k, v in times.items())
+
+
+def _bound(nbytes: float, flops: float, peak: float):
+    """(least ms, what bounds it) for work that moves ``nbytes`` and does
+    ``flops`` operations at the ``peak`` rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sdpa_times(torch, q, k, v, do, attn_mask=None, timer=_time_ms):
+    """Forward and backward ms of ``F.scaled_dot_product_attention`` over
+    (B, h, N, d) inputs: the library yardstick of an attention kernel. The
+    backward's times are for all of dq, dk, dv (and the mask's gradient
+    when the mask requires it), and for dq alone and dk, dv alone."""
+    F = torch.nn.functional
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = F.scaled_dot_product_attention(*xs, attn_mask=attn_mask)
+    wrt = xs + ([attn_mask] if attn_mask is not None and attn_mask.requires_grad else [])
+    fixed = None if attn_mask is None else attn_mask.detach()
+    return {
+        "fwd": timer(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=fixed)),
+        "bwd": timer(torch, lambda: torch.autograd.grad(out, wrt, do, retain_graph=True)),
+        "dq": timer(torch, lambda: torch.autograd.grad(out, xs[0], do, retain_graph=True)),
+        "dkv": timer(torch, lambda: torch.autograd.grad(out, xs[1:], do, retain_graph=True)),
+    }
 
 
 def phase_card(torch):
@@ -151,9 +274,14 @@ def phase_attention(torch):
                 "bwd_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
                     ref, qkv_r, do, retain_graph=True)),
             }
-            print(f"[attention] {what} times: " + "  ".join(f"{k} {v:.4f}" for k, v in t.items()))
-            if timing is None:
+            if timing is None:  # the first shape: the library's time and the bound too
+                lib = _sdpa_times(torch, *(x.transpose(1, 2).contiguous() for x in (q, k, v, do)))
+                t.update(fwd_library_ms=lib["fwd"], bwd_library_ms=lib["bwd"])
+                elems, prod = B * N * h * d, B * h * N * N * d  # boundary 0: every key live
+                t["fwd_bound"] = _bound(4 * elems * 2 + B * h * N * 4, 4 * prod, BF16_FLOPS)
+                t["bwd_bound"] = _bound(8 * elems * 2 + B * h * N * 4, 10 * prod, BF16_FLOPS)
                 timing = t
+            print(f"[attention] {what} times: {_fmt(t)}")
         del qkv_r, ref, g_r
     print(f"[attention] worst: fwd max|diff| {worst_fwd:.3e} (bound {ATTN_FWD_ATOL}), grad "
           f"max|diff| {worst_grad:.3e}, max rel {worst_grad_rel:.3e} (bound {ATTN_GRAD_RTOL})")
@@ -192,37 +320,41 @@ def phase_photometric(torch):
                 raise AssertionError(f"photometric kernel disagrees with its plain version at S={S}")
             worst = max(worst, err)
         if S == 224:
+            # ~30 f32 operations a pixel, ~110 with the blur (csrc/photometric.cu)
+            blurred = int(rows[:, ha.P_BLUR].sum().item())
+            flops = S * S * (110 * blurred + 30 * (B - blurred))
             timing = {
                 "ms": _time_ms(torch, lambda: ha.photometric_kernel(imgs, rows)),
                 "plain_ms": _time_ms(torch, lambda: ha.photometric_reference(imgs, rows)),
+                "bound": _bound(2 * imgs.numel() * 4 + rows.numel() * 4, flops, F32_FLOPS),
             }
             print(f"[photometric] S=224 B=8 times: kernel {timing['ms']:.4f} ms  "
                   f"plain {timing['plain_ms']:.4f} ms")
     return worst, timing
 
 
-def phase_train(torch, smi):
+def _train_run(torch, smi, train_args, tag):
+    """One 5-step ``train_dino`` run: checks the losses, that the student
+    trained and the teacher followed by EMA, and prints the step times.
+    Returns (launches over the run, args, config)."""
     from dinomc_tpu_torch.cli.train_dino import build_config, get_args_parser, train_dino
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
 
     with tempfile.TemporaryDirectory() as out_dir:
-        args = get_args_parser().parse_args(TRAIN_ARGS + ["--output_dir", out_dir])
+        args = get_args_parser().parse_args(train_args + ["--output_dir", out_dir])
         torch.cuda.reset_peak_memory_stats()
         _build.LAUNCHES.clear()
         t0 = time.perf_counter()
         summary = train_dino(args)
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
-    print(f"[train] losses {summary.losses}")
-    print(f"[train] launches over the run: {launches}")
+    print(f"[{tag}] losses {summary.losses}")
+    print(f"[{tag}] launches over the run: {launches}")
     if len(summary.losses) != 5 or not all(math.isfinite(x) for x in summary.losses):
         raise AssertionError(f"expected 5 finite losses, got {summary.losses}")
-    for name in ("attention_fwd", "attention_bwd", "photometric"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
 
-    _, cfg = build_config(args, 1)
+    mc_cfg, cfg = build_config(args, 1)
     init = init_dino_train_state(cfg, args.seed, "cuda")
     st = summary.state
     moved = max((a - b).abs().max().item() for a, b in
@@ -231,16 +363,24 @@ def phase_train(torch, smi):
               zip(st.teacher.parameters(), init.teacher.parameters()))
     gap = max((a - b).abs().max().item() for a, b in
               zip(st.teacher.parameters(), st.student.parameters()))
-    print(f"[train] student max|change| {moved:.3e}  teacher max|change| {ema:.3e}  "
+    print(f"[{tag}] student max|change| {moved:.3e}  teacher max|change| {ema:.3e}  "
           f"teacher-student max|gap| {gap:.3e}")
     if not (moved > 0 and ema > 0 and gap > 0):
         raise AssertionError("student did not train or teacher did not follow by EMA")
     med = sorted(summary.step_ms)[len(summary.step_ms) // 2]
-    print(f"[train] step ms (CUDA events, augmentation + step): "
+    print(f"[{tag}] step ms (CUDA events, augmentation + step): "
           f"{[round(x, 3) for x in summary.step_ms]}")
-    print(f"[train] median step {med:.3f} ms, {8 / (med / 1e3):.3f} images/s, "
+    print(f"[{tag}] median step {med:.3f} ms, {8 / (med / 1e3):.3f} images/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"wall {wall:.1f} s  [{smi}]")
+    return launches, mc_cfg, cfg
+
+
+def phase_train(torch, smi):
+    launches, _, _ = _train_run(torch, smi, TRAIN_ARGS, "train")
+    for name in ("attention_fwd", "attention_bwd", "photometric"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
     return launches
 
 
@@ -287,8 +427,15 @@ def phase_long_attention(torch):
                 "dkv_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
                     ref, (kr, vr), do, retain_graph=True)),
             }
-            print(f"[long attention] {what} times: "
-                  + "  ".join(f"{k} {v:.4f}" for k, v in timing.items()))
+            lib = _sdpa_times(torch, *(x.transpose(1, 2).contiguous() for x in (q, k, v, do)))
+            timing.update(fwd_library_ms=lib["fwd"], dq_library_ms=lib["dq"],
+                          dkv_library_ms=lib["dkv"])
+            elems, prod, rows = B * N * h * d * 2, B * h * N * N * d, B * h * N * 4
+            timing.update(  # K5 also reads o and writes delta; K6 reads delta
+                fwd_bound=_bound(4 * elems + rows, 4 * prod, BF16_FLOPS),
+                dq_bound=_bound(6 * elems + 2 * rows, 6 * prod, BF16_FLOPS),
+                dkv_bound=_bound(6 * elems + 2 * rows, 8 * prod, BF16_FLOPS))
+            print(f"[long attention] {what} times: {_fmt(timing)}")
         del ref, g_r, qr, kr, vr
     print(f"[long attention] worst: fwd max|diff| {worst['fwd']:.3e} (bound {ATTN_FWD_ATOL}), "
           f"grad max rel {worst['rel']:.3e} (bound {ATTN_GRAD_RTOL})")
@@ -362,6 +509,96 @@ def phase_seg(torch, smi):
     return total
 
 
+def phase_window_attention(torch):
+    from dinomc_tpu_torch.models.swin import _attn_mask
+    from dinomc_tpu_torch.ops.hopper import window_attention as wa
+
+    worst = {"fwd": 0.0, "grad": 0.0, "rel": 0.0}
+    timings = []
+    for i, (what, nB, heads, side, shift) in enumerate(SWIN_SHAPES):
+        C = heads * 32
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        qkv = torch.randn(nB, 49, 3 * C, generator=gen, device="cuda").bfloat16()
+        bias = 0.1 * torch.randn(heads, 49, 49, generator=gen, device="cuda")
+        do = torch.randn(nB, 49, C, generator=gen, device="cuda").bfloat16()
+        mask = _attn_mask(side, side, 7, shift, torch.device("cuda"))
+        q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+        o = wa.window_attention_fwd(q, k, v, bias, mask, heads)
+        grads = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
+        torch.cuda.synchronize()
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        ref = wa.window_attention_reference(*xs, mask, heads)
+        g_ref = torch.autograd.grad(ref, xs, do, retain_graph=True)
+        torch.cuda.synchronize()
+
+        fwd_err = (o.float() - ref.float()).abs().max().item()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
+        rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
+        print(f"[window attention] {what}: windows={nB} heads={heads} map={side} shift={shift} "
+              f"mask={None if mask is None else tuple(mask.shape)}  fwd max|diff| {fwd_err:.3e}  "
+              f"dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+            raise AssertionError(f"window attention kernels disagree with their plain version at {what}")
+        worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),
+                 "rel": max(worst["rel"], rel)}
+
+        if i < 4:  # the 224 px stages: kernel, plain version and library
+            # the library: SDPA with the float mask bias[h] + mask[w mod nW]
+            heads_first = [x.reshape(nB, 49, heads, 32).transpose(1, 2).contiguous()
+                           for x in (q, k, v, do)]
+            am = bias[None].expand(nB, heads, 49, 49)
+            if mask is not None:
+                nW = mask.shape[0]
+                am = (am.reshape(nB // nW, nW, heads, 49, 49) + mask[:, None]).reshape(am.shape)
+            am = am.to(torch.bfloat16).contiguous().requires_grad_()
+            t = {}
+            for tag, timer in (("", _time_ms), ("host_", _host_ms)):
+                lib = _sdpa_times(torch, *heads_first, attn_mask=am, timer=timer)
+                t.update({
+                    f"{tag}fwd_ms": timer(torch, lambda: wa.window_attention_fwd(
+                        q, k, v, bias, mask, heads)),
+                    f"{tag}fwd_plain_ms": timer(torch, lambda: wa.window_attention_reference(
+                        q, k, v, bias, mask, heads)),
+                    f"{tag}fwd_library_ms": lib["fwd"],
+                    f"{tag}bwd_ms": timer(torch, lambda: wa.window_attention_bwd(
+                        q, k, v, bias, mask, do, heads)),
+                    f"{tag}bwd_plain_ms": timer(torch, lambda: torch.autograd.grad(
+                        ref, xs, do, retain_graph=True)),
+                    f"{tag}bwd_library_ms": lib["bwd"],
+                })
+            elems, wbytes = nB * 49 * C * 2, heads * 49 * 49 * 4
+            mbytes = 0 if mask is None else mask.numel() * 4
+            prod = nB * heads * 49 * 49 * 32
+            t["fwd_bound"] = _bound(4 * elems + wbytes + mbytes, 4 * prod, BF16_FLOPS)
+            t["bwd_bound"] = _bound(7 * elems + 2 * wbytes + mbytes, 10 * prod, BF16_FLOPS)
+            print(f"[window attention] {what} times: {_fmt(t)}")
+            timings.append(t)
+        del xs, ref, g_ref
+    print(f"[window attention] worst: fwd max|diff| {worst['fwd']:.3e} (bound {ATTN_FWD_ATOL}), "
+          f"grad max rel {worst['rel']:.3e} (bound {ATTN_GRAD_RTOL})")
+    return worst, timings
+
+
+def phase_swin_train(torch, smi):
+    """Swin-T pretraining: K3, K7 and K8 launched exactly as the
+    configuration implies (one backbone call per crop size, teacher over the
+    globals, student over every crop; Swin does not pack crops), and no
+    attention kernel of the ViT."""
+    launches, mc_cfg, cfg = _train_run(torch, smi, SWIN_TRAIN_ARGS, "swin train")
+    steps = 5
+    blocks = cfg.encoder(True).swin_config().num_blocks
+    buckets = len(set(mc_cfg.local_sizes))
+    want = {
+        "photometric": steps * (2 + len(mc_cfg.local_sizes)),
+        "window_attention_fwd": steps * blocks * (2 + buckets),
+        "window_attention_bwd": steps * blocks * (1 + buckets),
+    }
+    print(f"[swin train] launches implied by the configuration: {want}")
+    if launches != want:
+        raise AssertionError(f"Swin kernel launches {launches}, the configuration implies {want}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -374,31 +611,43 @@ def main() -> int:
     launches = phase_train(torch, smi)
     long_err, long_t = phase_long_attention(torch)
     seg_launches = phase_seg(torch, smi)
+    win_err, win_t = phase_window_attention(torch)
+    swin_launches = phase_swin_train(torch, smi)
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
+    if bad:
+        raise AssertionError(f"the port imported {bad[:5]}")
     src = "dinomc_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, n, err, ms, plain_ms, bound, library_ms):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
     kernels = [
-        {"name": "attention_fwd", "route": "cuda", "source": src + "attention.cu",
-         "replaces": "dinomc_tpu/ops/pallas/attention.py:162",
-         "launches": launches.get("attention_fwd", 0), "max_abs_err": fwd_err,
-         "ms": attn_t["fwd_ms"], "plain_ms": attn_t["fwd_plain_ms"]},
-        {"name": "attention_bwd", "route": "cuda", "source": src + "attention.cu",
-         "replaces": "dinomc_tpu/ops/pallas/attention.py:188",
-         "launches": launches.get("attention_bwd", 0), "max_abs_err": grad_err,
-         "ms": attn_t["bwd_ms"], "plain_ms": attn_t["bwd_plain_ms"]},
-        {"name": "photometric", "route": "cuda", "source": src + "photometric.cu",
-         "replaces": "dinomc_tpu/ops/pallas/augment.py:194",
-         "launches": launches.get("photometric", 0), "max_abs_err": photo_err,
-         "ms": photo_t["ms"], "plain_ms": photo_t["plain_ms"]},
+        entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
+              launches.get("attention_fwd", 0), fwd_err, attn_t["fwd_ms"], attn_t["fwd_plain_ms"],
+              attn_t["fwd_bound"], attn_t["fwd_library_ms"]),
+        entry("attention_bwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:188",
+              launches.get("attention_bwd", 0), grad_err, attn_t["bwd_ms"], attn_t["bwd_plain_ms"],
+              attn_t["bwd_bound"], attn_t["bwd_library_ms"]),
+        entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
+              launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
+              photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),
                             ("long_attention_dkv", 187, "dkv")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src + "attention_long.cu",
-            "replaces": f"dinomc_tpu/ops/pallas/attention_long.py:{line}",
-            "launches": seg_launches.get(name, 0), "max_abs_err": long_err[key],
-            "ms": long_t[f"{key}_ms"], "plain_ms": long_t[f"{key}_plain_ms"]})
+        kernels.append(entry(
+            name, "attention_long.cu", f"dinomc_tpu/ops/pallas/attention_long.py:{line}",
+            seg_launches.get(name, 0), long_err[key], long_t[f"{key}_ms"],
+            long_t[f"{key}_plain_ms"], long_t[f"{key}_bound"], long_t[f"{key}_library_ms"]))
+    stage1 = win_t[0]  # the timed shape: stage 1 of the 224 px globals
+    for name, line, key, err in (("window_attention_fwd", 281, "fwd", win_err["fwd"]),
+                                 ("window_attention_bwd", 319, "bwd", win_err["grad"])):
+        kernels.append(entry(
+            name, "window_attention.cu", f"dinomc_tpu/ops/pallas/window_attention.py:{line}",
+            swin_launches.get(name, 0), err, stage1[f"{key}_ms"], stage1[f"{key}_plain_ms"],
+            stage1[f"{key}_bound"], stage1[f"{key}_library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

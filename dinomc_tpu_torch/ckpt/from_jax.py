@@ -1,9 +1,8 @@
 """Carry JAX-package parameters into the port.
 
-The JAX trees go through the JAX package's own exporters,
-``dinomc_tpu.ckpt.torch_export.vit_state_dict``, ``dino_head_state_dict``
-and ``upernet_state_dict`` (host-only, jax-free), which emit the
-reference's timm/DINO/mmseg state-dict layout; the port's modules use the
+The JAX trees go through ``ckpt/state_dicts.py`` (the port's numpy copies
+of the JAX package's exporters), which emit the reference's
+timm/DINO/torchvision/mmseg state-dict layout; the port's modules use the
 same names, so each load is ``load_state_dict(strict=True)``. Inputs are
 numpy trees (or anything ``np.asarray`` reads, such as host copies of JAX
 arrays). A UPerNet takes a ``(params, bn_state)`` pair.
@@ -17,12 +16,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from dinomc_tpu.ckpt.torch_export import (
+from dinomc_tpu_torch.ckpt.state_dicts import (
     dino_head_state_dict,
+    swin_state_dict,
     upernet_state_dict,
     vit_state_dict,
 )
 from dinomc_tpu_torch.models.dino_head import DINOHead
+from dinomc_tpu_torch.models.swin import SwinTransformer
 from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
 from dinomc_tpu_torch.train import optim
@@ -36,16 +37,17 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
-    a ViT tree, a DINO-head tree, a ``{'backbone', 'head'}`` tree, or a
-    UPerNet's ``(params, bn_state)``."""
+    a ViT or Swin tree, a DINO-head tree, a ``{'backbone', 'head'}`` tree
+    (ViT or Swin backbone), or a UPerNet's ``(params, bn_state)``."""
+    backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict}
     if isinstance(module, UPerNet):
         return _tensors(upernet_state_dict(*params))
-    if isinstance(module, VisionTransformer):
-        return _tensors(vit_state_dict(params))
+    if type(module) in backbones:
+        return _tensors(backbones[type(module)](params))
     if isinstance(module, DINOHead):
         return _tensors(dino_head_state_dict(params))
     if isinstance(module, nn.ModuleDict) and set(module.keys()) == {"backbone", "head"}:
-        sd = vit_state_dict(params["backbone"], "backbone.")
+        sd = backbones[type(module["backbone"])](params["backbone"], "backbone.")
         sd.update(dino_head_state_dict(params["head"], "head."))
         return _tensors(sd)
     raise TypeError(f"no JAX parameter mapping for {type(module).__name__}")

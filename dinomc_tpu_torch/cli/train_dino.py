@@ -117,8 +117,8 @@ class _SyntheticImages:
 
 
 def _dataset(args):
-    from dinomc_tpu.data import packed
-    from dinomc_tpu.data.seco import FlatImageFolder, MCBase
+    from dinomc_tpu_torch.data import packed
+    from dinomc_tpu_torch.data.seco import FlatImageFolder, MCBase
 
     if args.data_path == "synthetic":
         return _SyntheticImages(max(args.batch_size_per_gpu * 4, 64), args.image_size)

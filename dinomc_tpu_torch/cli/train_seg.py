@@ -9,9 +9,9 @@ per-class table, the best-mIoU checkpoint, and per-epoch CSV and JSONL
 logs. The flags are the JAX CLI's plus ``--device``. Rerunning with the same
 ``--output_dir`` resumes from its newest checkpoint.
 
-``--pretrained_ckpt`` takes a reference ``.pth`` (imported through
-``dinomc_tpu.ckpt.torch_import.load_dino_backbone`` with
-``--checkpoint_key``, ``none`` for Facebook DINO/DeiT files); ``--data_root
+``--pretrained_ckpt`` takes a reference ``.pth`` (loaded by
+``ckpt/torch_import.load_backbone`` with ``--checkpoint_key``, ``none`` for
+Facebook DINO/DeiT files); ``--data_root
 synthetic`` needs no dataset. Not ported yet, and refused with a pointer to
 ROADMAP.md: an orbax checkpoint directory as ``--pretrained_ckpt``, and
 ``--seq_parallel > 1``.
@@ -122,21 +122,16 @@ def _datasets(args, spec):
 
 
 def _load_pretrained(state, args) -> None:
-    from dinomc_tpu.ckpt.torch_export import vit_state_dict
-    from dinomc_tpu.ckpt.torch_import import load_dino_backbone
-    from dinomc_tpu_torch.ckpt.from_jax import _tensors
+    from dinomc_tpu_torch.ckpt.torch_import import load_backbone
 
     key = None if args.checkpoint_key.lower() == "none" else args.checkpoint_key
-    vit = state.model.backbone.vit
-    tree = load_dino_backbone(args.pretrained_ckpt, checkpoint_key=key, depth=vit.cfg.depth)
-    vit.load_state_dict(_tensors(vit_state_dict(tree)), strict=True)
+    load_backbone(state.model.backbone.vit, args.pretrained_ckpt, checkpoint_key=key)
     print(f"loaded pretrained backbone from {args.pretrained_ckpt}")
 
 
 def train_seg(args) -> SegSummary:
     import torch
 
-    from dinomc_tpu.utils.logging import WandbLogger, write_epoch_csv
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
     from dinomc_tpu_torch.cli.common import set_seed
     from dinomc_tpu_torch.core.schedules import cosine_scheduler
@@ -146,7 +141,7 @@ def train_seg(args) -> SegSummary:
     from dinomc_tpu_torch.train.seg_trainer import (
         SegConfig, init_seg_train_state, seg_predict, seg_train_step,
     )
-    from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
+    from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger, WandbLogger, write_epoch_csv
 
     _refuse_unported(args)
     device = torch.device(args.device)

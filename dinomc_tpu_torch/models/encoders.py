@@ -1,25 +1,28 @@
-"""Encoder registry, ViT branch.
+"""Encoder registry: the ViTs and Swin-T.
 
 Counterpart of ``dinomc_tpu/models/encoders.py``: one interface the DINO
-trainer calls without knowing the architecture. Only the ViTs are ported;
-every other architecture raises ``NotImplementedError`` naming its
-ROADMAP.md item. BatchNorm state does not exist for a ViT, so ``apply``
-returns the embeddings alone.
+trainer calls without knowing the architecture. The ViTs and Swin-T are
+ported; every other architecture raises ``NotImplementedError`` naming its
+ROADMAP.md item. Neither has BatchNorm state, so ``apply`` returns the
+embeddings alone. Only the ViTs pack two crop batches into one forward:
+Swin's shifted windows would mix them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from dinomc_tpu_torch.models import swin as sw
 from dinomc_tpu_torch.models import vit as vt
+
+Encoder = Union[vt.VisionTransformer, sw.SwinTransformer]
 
 _NOT_PORTED = {
     "resnet50": "queue 1 #13 (convnets)",
     "wide_resnet50_2": "queue 1 #13 (convnets)",
-    "swin_t": "queue 1 #14 (models/swin.py) and TPU kernels #4",
     "xcit_small_12": "queue 1 #15 (models/xcit.py)",
     "xcit_medium_24": "queue 1 #15 (models/xcit.py)",
 }
@@ -27,15 +30,15 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    arch: str  # vit_tiny | vit_small | vit_base | vit_test
-    patch_size: int = 16
+    arch: str  # vit_tiny | vit_small | vit_base | vit_test | swin_t
+    patch_size: int = 16  # ViT only: Swin-T's patch is 4, as in the JAX package
     img_size: int = 224
     drop_path_rate: float = 0.0  # student only
     compute_dtype: torch.dtype = torch.bfloat16
     gelu_approx: bool = True
 
     def __post_init__(self):
-        if not self.is_vit:
+        if not (self.is_vit or self.arch == "swin_t"):
             item = _NOT_PORTED.get(self.arch, "the encoder queue")
             raise NotImplementedError(
                 f"encoder {self.arch!r} is not ported to PyTorch yet (ROADMAP.md {item})"
@@ -60,20 +63,31 @@ class EncoderConfig:
             gelu_approx=self.gelu_approx,
         )
 
+    def swin_config(self) -> sw.SwinConfig:
+        return sw.swin_t(
+            compute_dtype=self.compute_dtype,
+            drop_path_rate=self.drop_path_rate,
+            gelu_approx=self.gelu_approx,
+        )
+
     @property
     def embed_dim(self) -> int:
-        return self.vit_config().embed_dim
+        return self.vit_config().embed_dim if self.is_vit else self.swin_config().out_dim
 
-    def build(self, gen: Optional[torch.Generator] = None) -> vt.VisionTransformer:
+    def build(self, gen: Optional[torch.Generator] = None) -> Encoder:
         """A freshly initialized encoder (parameters on the CPU)."""
-        return vt.VisionTransformer(self.vit_config(), gen)
+        if self.is_vit:
+            return vt.VisionTransformer(self.vit_config(), gen)
+        return sw.SwinTransformer(self.swin_config(), gen)
 
     def apply(
-        self, model: vt.VisionTransformer, x: torch.Tensor, train: bool = False,
+        self, model: Encoder, x: torch.Tensor, train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """x (B, H, W, 3) -> (B, embed_dim) f32 embeddings."""
-        return vt.vit_forward(model, x, generator, not train)
+        if self.is_vit:
+            return vt.vit_forward(model, x, generator, not train)
+        return sw.swin_forward(model, x, generator, not train)
 
     def apply_packed(
         self, model: vt.VisionTransformer, xa: torch.Tensor, xb: torch.Tensor,

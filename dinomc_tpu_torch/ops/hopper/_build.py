@@ -43,6 +43,8 @@ _SIGNATURES = {
     "dinomc_long_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _P],
     "dinomc_long_attn_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
     "dinomc_long_attn_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "dinomc_win_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 4 + [_F, _P],
+    "dinomc_win_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 4 + [_F, _P],
 }
 
 

@@ -150,9 +150,8 @@ def photometric_reference(
     blurred = _blur_axis(_blur_axis(x, taps, 2), taps, 3)
     x = torch.where(on(P_BLUR), blurred, x)
     x = torch.where(on(P_SOL) & (x >= SOLARIZE_THRESHOLD), 1.0 - x, x)
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device).view(1, 3, 1, 1)
-    inv = torch.tensor([1.0 / s for s in std], dtype=torch.float32, device=x.device)
-    return (x - m) * inv.view(1, 3, 1, 1)
+    # per-channel scalars: no host-to-device copy, which would sync the stream
+    return torch.stack([(x[:, c] - mean[c]) * (1.0 / std[c]) for c in range(3)], dim=1)
 
 
 def photometric_kernel(images, params, mean=IMAGENET_MEAN, std=IMAGENET_STD):

@@ -1,19 +1,23 @@
-"""Training-loop logging: smoothed meters, epoch iteration lines, JSONL.
+"""Training-loop logging: smoothed meters, epoch iteration lines, JSONL,
+the per-epoch CSV and optional Weights & Biases runs.
 
-Counterpart of the parts of ``dinomc_tpu/utils/logging.py`` the DINO CLI
-uses: ``SmoothedValue`` / ``MetricLogger.log_every`` (reference
-``utils/utils.py:239-416``) and ``JsonlLogger`` (``main_dino_mc.py:348-350``).
-The memory readout is ``torch.cuda.memory_allocated`` when a card is in use.
+Counterpart of the parts of ``dinomc_tpu/utils/logging.py`` the CLIs use:
+``SmoothedValue`` / ``MetricLogger.log_every`` (reference
+``utils/utils.py:239-416``), ``JsonlLogger`` (``main_dino_mc.py:348-350``),
+``write_epoch_csv`` and ``WandbLogger`` (copied as they are; jax-free in the
+JAX package too). The memory readout is ``torch.cuda.memory_allocated`` when
+a card is in use.
 """
 
 from __future__ import annotations
 
+import csv
 import datetime
 import json
 import os
 import time
 from collections import defaultdict, deque
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -114,3 +118,67 @@ class JsonlLogger:
     def write(self, record: Dict) -> None:
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+def write_epoch_csv(
+    path: str,
+    epoch: int,
+    scalars: Dict[str, float],
+    per_class: Optional[Dict[str, Sequence[float]]] = None,
+    class_names: Optional[Sequence[str]] = None,
+) -> None:
+    """Wide-format per-epoch CSV: one row per epoch, columns for scalars plus
+    ``<metric>/<class>`` per-class columns. (Fixes the reference's
+    late-binding bug at ``utils/metric_tool.py:355-367``.)"""
+    row: Dict[str, float] = {"epoch": epoch, **scalars}
+    if per_class:
+        assert class_names is not None
+        for metric, values in per_class.items():
+            for cls_name, v in zip(class_names, values):
+                row[f"{metric}/{cls_name}"] = float(v)
+    exists = os.path.exists(path)
+    fieldnames = list(row.keys())
+    if exists:
+        with open(path) as f:
+            reader = csv.reader(f)
+            try:
+                fieldnames = next(reader)
+            except StopIteration:
+                exists = False
+    with open(path, "a", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=fieldnames, extrasaction="ignore")
+        if not exists:
+            writer.writeheader()
+        writer.writerow(row)
+
+
+class WandbLogger:
+    """Optional Weights & Biases run logging (the reference seg trainers
+    call ``wandb.init``/``wandb.log`` directly, ``train_dino_mc_seg.py:44-59,
+    171-185``). Gated: no-ops unless the ``wandb`` package is importable AND
+    a login is configured; training never depends on it."""
+
+    def __init__(self, project: str, name: Optional[str] = None,
+                 config: Optional[Dict] = None, enabled: bool = True):
+        self._run = None
+        if not enabled:
+            return
+        try:
+            import wandb
+
+            self._run = wandb.init(project=project, name=name, config=config or {}, reinit=True)
+        except Exception:
+            self._run = None
+
+    @property
+    def active(self) -> bool:
+        return self._run is not None
+
+    def log(self, metrics: Dict, step: Optional[int] = None) -> None:
+        if self._run is not None:
+            self._run.log(metrics, step=step)
+
+    def finish(self) -> None:
+        if self._run is not None:
+            self._run.finish()
+            self._run = None

@@ -3,11 +3,12 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python scripts/profile_torch_step.py [--out_dir output_dir/profile]
+    python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t]
     python scripts/profile_torch_step.py --task seg [--train_backbone]
 
 ``--task dino`` (the default) drives the port's DINO-MC step
-(``dinomc_tpu_torch``) at ViT-S/8, out_dim 65536, batch 8; ``--task seg``
+(``dinomc_tpu_torch``) at ViT-S/8 (or Swin-T with ``--arch swin_t``),
+out_dim 65536, batch 8; ``--task seg``
 its UPerNet fine-tune step at ViT-S/8, 512 px (4097 tokens), batch 4, 8
 classes, decoder-only unless ``--train_backbone``. Weights come from a
 seed and random images are made on the device; the CLIs' flag defaults
@@ -56,7 +57,8 @@ DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
 # hand-written kernels, by the prefix of their CUDA function names
 KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_", "long_fwd_kernel", "long_dq_kernel",
-                "long_dkv_kernel", "mean_gray_kernel", "photometric_kernel")
+                "long_dkv_kernel", "mean_gray_kernel", "photometric_kernel", "win_fwd_kernel",
+                "win_bwd_kernel", "win_dbias_reduce_kernel")
 
 
 def _busy_and_span(events):
@@ -73,7 +75,7 @@ def _busy_and_span(events):
     return busy / 1e3, (max(b for _, b in iv) - iv[0][0]) / 1e3
 
 
-def _dino_step(dev):
+def _dino_step(dev, arch: str):
     """The DINO-MC step at batch 8; returns (step(ev), batch, split names)."""
     from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
     from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
@@ -83,7 +85,7 @@ def _dino_step(dev):
 
     batch = 8
     args = get_args_parser().parse_args([
-        "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
+        "--arch", arch, "--patch_size", "8", "--out_dim", "65536",
         "--batch_size_per_gpu", str(batch),
     ])
     niter = 1000
@@ -147,6 +149,8 @@ def main() -> int:
     p.add_argument("--task", default="dino", choices=["dino", "seg"])
     p.add_argument("--train_backbone", action="store_true",
                    help="seg: train the ViT too (default: decoder-only)")
+    p.add_argument("--arch", default="vit_small", choices=["vit_small", "swin_t"],
+                   help="dino: the encoder (ViT-S/8 or Swin-T)")
     opt = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: torch sees no CUDA device")
@@ -161,7 +165,7 @@ def main() -> int:
     if opt.task == "seg":
         step_ev, batch, parts = _seg_step(dev, opt.train_backbone)
     else:
-        step_ev, batch, parts = _dino_step(dev)
+        step_ev, batch, parts = _dino_step(dev, opt.arch)
 
     def step(ev=None):
         step_ev(ev or [torch.cuda.Event() for _ in range(4)])
@@ -211,7 +215,8 @@ def main() -> int:
         "card": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "task": opt.task + ("+backbone" if opt.train_backbone else ""),
+        "task": opt.task + ("+backbone" if opt.train_backbone else "")
+        + (f" {opt.arch}" if opt.task == "dino" else ""),
         "batch": batch,
         "unprofiled_ms": {
             **dict(zip(parts, med)),

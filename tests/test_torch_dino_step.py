@@ -201,7 +201,7 @@ def test_plan_packing_bench_sizes():
 
 
 def test_non_vit_encoders_name_their_roadmap_item():
-    for arch in ("resnet50", "swin_t", "xcit_small_12"):
+    for arch in ("resnet50", "xcit_small_12"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EncoderConfig(arch=arch)
 
@@ -369,7 +369,8 @@ def test_clip_and_decay_groups_are_the_references():
 
 
 def test_package_never_imports_jax():
-    """Every dinomc_tpu_torch module, and chip_smoke.py, import without jax."""
+    """Every dinomc_tpu_torch module, and chip_smoke.py, import without jax
+    and without any module of the JAX package, jax-free ones included."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dinomc_tpu_torch\n"
@@ -377,7 +378,7 @@ def test_package_never_imports_jax():
         "'dinomc_tpu_torch.')]\n"
         "for name in names: importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'dinomc_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

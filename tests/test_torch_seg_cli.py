@@ -51,7 +51,7 @@ def test_unported_options_name_their_roadmap_item(tmp_path, flags):
 
 def test_pretrained_pth_backbone_loads(tmp_path):
     """A DINO checkpoint ({'teacher': {'backbone.*', 'head.*'}}) goes through
-    ``torch_import.load_dino_backbone`` into the port's ViT."""
+    the port's ``ckpt/torch_import.load_backbone`` into its ViT."""
     src = train_seg(_args(tmp_path / "a", "--epochs", "1", "--max_steps", "1",
                           "--train_backbone", "true")).state.model.backbone.vit
     sd = {f"backbone.{k}": v for k, v in src.state_dict().items()}
@@ -82,8 +82,10 @@ def test_cli_never_imports_jax():
         "import dinomc_tpu_torch.cli.train_seg as m\n"
         "import dinomc_tpu_torch.ckpt.checkpoint, dinomc_tpu_torch.data.seg_datasets\n"
         "import dinomc_tpu_torch.eval.metrics, dinomc_tpu_torch.train.seg_trainer\n"
-        "import dinomc_tpu.utils.logging, dinomc_tpu.ckpt.torch_import\n"
+        "import dinomc_tpu_torch.ckpt.torch_import, dinomc_tpu_torch.utils.logging\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'dinomc_tpu']\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
