@@ -32,7 +32,25 @@ script exits non-zero:
    the device and, apart, with the host's launch cost in;
 8. the pretraining entry point again, for 5 Swin-T steps (``--arch swin_t``,
    out_dim 65536, batch 8), with K3, K7 and K8 launched exactly as often as
-   the configuration implies and no other kernel launched.
+   the configuration implies and no other kernel launched;
+9. the fused MLP K11 against its plain version on the card, in bf16, at the
+   DINO step's row counts at ViT-S, at ViT-B and ViT-Ti widths and a ragged
+   small M, both GELU forms, its gradients (a plain backward) equal to the
+   plain route's bit for bit; timed at the 224 px globals beside the plain
+   version and the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain;
+10. the head-stacked window attention K9 (forward) and K10 (backward) against
+   their plain version at phase 7's shapes; each 224 px stage timed beside
+   K7/K8 (phase 7's plain, SDPA and bound columns apply); then its main path,
+   ``window_attention(..., variant='stacked')`` through autograd over the 12
+   Swin-T blocks' shapes at 224 px (16 images), as the JAX package's callers
+   reach it: by a direct call (no model names the variant);
+11. the ViT-S/8 DINO step with ``mlp_impl='fused'`` (out_dim 65536, batch 8,
+   weights from a seed): 5 steps of the trainer's step function with K11 on
+   teacher and student, against the same 5 steps with the dense MLP from the
+   same weights, images and draws; then the step under no remat and the
+   ``full``, ``attn`` and ``qkv+attn+mlp`` policies, both MLP forms: step
+   time, peak memory and K1/K2/K11 launches a step against what the policy
+   implies.
 
 Then one JSON line with each kernel's launches, error, times, bound and
 library time, and as the last line ``{"ok": true, "device": {...}}``. With
@@ -74,6 +92,18 @@ ATTN_GRAD_RTOL = 2e-2
 # photometric: f32 both sides; the slack is FMA contraction and the order of
 # the mean-gray reduction, amplified by up to 1/0.225 in the normalize.
 PHOTO_ATOL = 1e-4
+# fused MLP, max|diff| / max|ref|: both sides accumulate in f32 and round the
+# GELU'd hidden and the output to bf16 once each; a different f32 summation
+# order can flip one rounding, one bf16 ulp (2^-8 = 3.9e-3 relative) of the
+# output, and 1e-2 leaves room for that and no more.
+MLP_RTOL = 1e-2
+# The DINO loss with the fused MLP against the dense one, per step, relative:
+# the two round the (M, F) hidden activation at different places (dense:
+# x W1^T + b1 to bf16 before GELU; fused: after GELU), about 2^-9 relative an
+# element in 12 layers; the features move by ~1e-3 relative and the loss
+# (about ln 65536 = 11.1 at the start) by less. 5e-3 is about one bf16 ulp
+# of the loss.
+LOSS_RTOL = 5e-3
 
 ATTN_SHAPES = [  # (what, B, N, heads, head_dim, boundary)
     ("global 224px", 16, 785, 6, 64, 0),
@@ -106,6 +136,21 @@ SWIN_SHAPES = [  # (what, windows, heads, map side, shift); the first four are t
     ("stage 4, 84 px", 8, 24, 3, 0),
     ("ragged small", 8, 2, 10, 3),
 ]
+MLP_SHAPES = [  # (what, M, D, F); the first is timed
+    ("ViT-S/8 globals, 2 x 8 at 224 px", 12560, 384, 1536),
+    ("packed 184+84 px", 5048, 384, 1536),
+    ("packed 164+124 px", 5016, 384, 1536),
+    ("packed 144+104 px", 3960, 384, 1536),
+    ("84 px alone", 808, 384, 1536),
+    ("ViT-B/8 globals", 12560, 768, 3072),
+    ("ragged small, ViT-Ti width", 70, 192, 768),
+]
+# Swin-T's 12 blocks at 224 px over 16 images: (windows, heads, map side,
+# shift); the odd block of each stage is shifted (stage 4's 7 x 7 map is one
+# window and never shifts)
+SWIN_BLOCKS = ([(1024, 3, 56, 0), (1024, 3, 56, 3), (256, 6, 28, 0), (256, 6, 28, 3)]
+               + [(64, 12, 14, 0), (64, 12, 14, 3)] * 3 + [(16, 24, 7, 0)] * 2)
+REMAT_RUNS = [None, "full", "attn", "qkv+attn+mlp"]  # None: ViTConfig.remat=False
 SWIN_TRAIN_ARGS = [
     "--arch", "swin_t", "--out_dim", "65536", "--batch_size_per_gpu", "8",
     "--data_path", "synthetic", "--max_steps", "5", "--device", "cuda",
@@ -599,6 +644,259 @@ def phase_swin_train(torch, smi):
     return launches
 
 
+def _mlp_inputs(torch, M, D, Fd, seed):
+    """x (M, D), W1 (F, D), b1, W2 (D, F), b2 and dO in bf16 on the card;
+    weights scaled by 1/sqrt(fan-in) so activations stay O(1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+    w1 = (torch.randn(Fd, D, generator=gen, device="cuda") / math.sqrt(D)).bfloat16()
+    w2 = (torch.randn(D, Fd, generator=gen, device="cuda") / math.sqrt(Fd)).bfloat16()
+    b1, b2 = ((0.1 * torch.randn(n, generator=gen, device="cuda")).bfloat16() for n in (Fd, D))
+    do = torch.randn(M, D, generator=gen, device="cuda").bfloat16()
+    return (x, w1, b1, w2, b2), do
+
+
+def phase_fused_mlp(torch):
+    from dinomc_tpu_torch.ops.hopper import fused_mlp as fm
+
+    F = torch.nn.functional
+    worst_abs, worst_rel, timing = 0.0, 0.0, None
+    for i, (what, M, D, Fd) in enumerate(MLP_SHAPES):
+        args, do = _mlp_inputs(torch, M, D, Fd, 400 + i)
+        for approx in (True, False):
+            outs, grads = [], []
+            for forward in (fm.fused_mlp_fwd, fm.fused_mlp_reference):
+                xs = [a.clone().requires_grad_() for a in args]
+                out = fm.FusedMLP.apply(*xs, approx, forward)
+                outs.append(out.float())
+                grads.append(torch.autograd.grad(out, xs, do))
+            torch.cuda.synchronize()
+            err = (outs[0] - outs[1]).abs().max().item()
+            rel = err / outs[1].abs().max().item()
+            same = all(torch.equal(a, b) for a, b in zip(*grads))
+            print(f"[fused mlp] {what}: M={M} D={D} F={Fd} gelu={'tanh' if approx else 'erf'}  "
+                  f"fwd max|diff| {err:.3e}  rel {rel:.3e}  gradients equal to the plain "
+                  f"route's: {same}")
+            if not (rel <= MLP_RTOL and same):
+                raise AssertionError(f"fused MLP kernel disagrees with its plain version at {what}")
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+        if i == 0:  # the 224 px globals at ViT-S: kernel, plain, the dense chain, the bound
+            x, w1, b1, w2, b2 = args
+            timing = {
+                "ms": _time_ms(torch, lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2, True)),
+                "plain_ms": _time_ms(torch, lambda: fm.fused_mlp_reference(x, w1, b1, w2, b2, True)),
+                # three PyTorch calls (cuBLAS, an elementwise GELU, cuBLAS): no one
+                # PyTorch call computes this function
+                "library_ms": _time_ms(torch, lambda: F.linear(
+                    F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)),
+                "bound": _bound(2 * (2 * M * D + 2 * D * Fd + Fd + D), 4 * M * D * Fd, BF16_FLOPS),
+            }
+            print(f"[fused mlp] {what} times: {_fmt(timing)}")
+    print(f"[fused mlp] worst: fwd max|diff| {worst_abs:.3e}, rel {worst_rel:.3e} (bound {MLP_RTOL})")
+    return worst_abs, timing
+
+
+def _window_inputs(torch, nB, heads, side, shift, seed):
+    from dinomc_tpu_torch.models.swin import _attn_mask
+
+    C = heads * 32
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(nB, 49, 3 * C, generator=gen, device="cuda").bfloat16()
+    bias = 0.1 * torch.randn(heads, 49, 49, generator=gen, device="cuda")
+    do = torch.randn(nB, 49, C, generator=gen, device="cuda").bfloat16()
+    mask = _attn_mask(side, side, 7, shift, torch.device("cuda"))
+    return qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:], bias, mask, do
+
+
+def phase_window_attention_stacked(torch, win_t):
+    """K9/K10 against the plain version at phase 7's shapes (the same
+    inputs), each 224 px stage timed beside K7/K8; then the main path."""
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.ops.hopper import window_attention as wa
+
+    worst = {"fwd": 0.0, "grad": 0.0, "rel": 0.0}
+    timings = []
+    for i, (what, nB, heads, side, shift) in enumerate(SWIN_SHAPES):
+        q, k, v, bias, mask, do = _window_inputs(torch, nB, heads, side, shift, 300 + i)
+        o = wa.window_attention_stacked_fwd(q, k, v, bias, mask, heads)
+        grads = wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)
+        torch.cuda.synchronize()
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        ref = wa.window_attention_reference(*xs, mask, heads)
+        g_ref = torch.autograd.grad(ref, xs, do)
+        torch.cuda.synchronize()
+        fwd_err = (o.float() - ref.float()).abs().max().item()
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
+        rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
+        print(f"[stacked window attention] {what}: windows={nB} heads={heads} "
+              f"(a block: {wa.head_chunk(heads, wa.STACKED_HEADS['fwd'])} / "
+              f"{wa.head_chunk(heads, wa.STACKED_HEADS['bwd'])} heads)  fwd max|diff| "
+              f"{fwd_err:.3e}  dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+            raise AssertionError(f"stacked window attention kernels disagree with their plain "
+                                 f"version at {what}")
+        worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),
+                 "rel": max(worst["rel"], rel)}
+        if i < 4:  # the 224 px stages: K9/K10 beside K7/K8 in this call
+            t = {
+                "fwd_ms": _time_ms(torch, lambda: wa.window_attention_stacked_fwd(
+                    q, k, v, bias, mask, heads)),
+                "perhead_fwd_ms": _time_ms(torch, lambda: wa.window_attention_fwd(
+                    q, k, v, bias, mask, heads)),
+                "bwd_ms": _time_ms(torch, lambda: wa.window_attention_stacked_bwd(
+                    q, k, v, bias, mask, do, heads)),
+                "perhead_bwd_ms": _time_ms(torch, lambda: wa.window_attention_bwd(
+                    q, k, v, bias, mask, do, heads)),
+            }
+            t.update({key: win_t[i][key] for key in (
+                "fwd_plain_ms", "fwd_library_ms", "fwd_bound",
+                "bwd_plain_ms", "bwd_library_ms", "bwd_bound")})
+            print(f"[stacked window attention] {what} times: {_fmt(t)}")
+            timings.append(t)
+        del xs, ref, g_ref
+    print(f"[stacked window attention] worst: fwd max|diff| {worst['fwd']:.3e} (bound "
+          f"{ATTN_FWD_ATOL}), grad max rel {worst['rel']:.3e} (bound {ATTN_GRAD_RTOL})")
+
+    # The main path: the public entry over Swin-T's 12 block shapes, forward
+    # and backward through autograd.
+    inputs = [_window_inputs(torch, *blk, 500 + j) for j, blk in enumerate(SWIN_BLOCKS)]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    for (q, k, v, bias, mask, do), (_, heads, _, _) in zip(inputs, SWIN_BLOCKS):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        out = wa.window_attention(*xs, mask, heads, variant="stacked")
+        torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {"window_attention_stacked_fwd": len(SWIN_BLOCKS),
+            "window_attention_stacked_bwd": len(SWIN_BLOCKS)}
+    print(f"[stacked window attention] main path, window_attention(variant='stacked') over "
+          f"Swin-T's {len(SWIN_BLOCKS)} blocks at 224 px: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"stacked window attention launches {launches}, want {want}")
+    return worst, timings, launches
+
+
+def _dino_setup(torch):
+    """The ViT-S/8 DINO configuration of phase 4 (out_dim 65536, B = 8) and 5
+    steps of its inputs: images and multi-crop draws made on the card from a
+    seed, augmented once and shared by every run below."""
+    from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
+    from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
+
+    args = get_args_parser().parse_args(TRAIN_ARGS)
+    mc_cfg, cfg = build_config(args, 1)
+    sch = build_schedules(args, args.batch_size_per_gpu, 1)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    B, S = args.batch_size_per_gpu, args.image_size
+    batches = []
+    for _ in range(5):
+        images = torch.rand(B, S, S, 3, generator=gen, device="cuda")
+        batches.append(multicrop_augment(images, draw_multicrop(gen, B, S, S, mc_cfg, device="cuda"),
+                                         mc_cfg))
+    return cfg, sch, batches
+
+
+def _set_backbones(torch, state, **fields):
+    import dataclasses
+
+    for model in (state.student, state.teacher):
+        model["backbone"].cfg = dataclasses.replace(model["backbone"].cfg, **fields)
+
+
+def _step(torch, state, batch, sch, cfg):
+    """One ``dino_train_step``; returns (loss, ms between CUDA events around
+    it, launches, peak memory GiB)."""
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.dino_trainer import dino_train_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    metrics = dino_train_step(state, *batch, sch, cfg)
+    b.record()
+    b.synchronize()
+    return (metrics["loss"].item(), a.elapsed_time(b), dict(_build.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_fused_mlp_train(torch, smi):
+    """5 DINO steps with the fused MLP against 5 with the dense one, from the
+    same weights and inputs; then the step under the remat policies. Returns
+    the fused run's launches (the main path of K11)."""
+    from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
+
+    cfg, sch, batches = _dino_setup(torch)
+    depth = cfg.encoder(True).vit_config().depth
+    # one teacher call (the globals), four student calls (the globals and the
+    # three packed local pairs 184+84, 164+124, 144+104); the default 'attn'
+    # remat keeps K1's output, and torch's recompute replays K11
+    teacher_calls, student_calls = 1, 4
+    want = {"attention_fwd": depth * (teacher_calls + student_calls),
+            "attention_bwd": depth * student_calls,
+            "fused_mlp": depth * (teacher_calls + 2 * student_calls)}
+    losses, launches = {}, {}
+    for impl in ("fused", "dense"):
+        state = init_dino_train_state(cfg, 0, "cuda")
+        _set_backbones(torch, state, mlp_impl=impl)
+        losses[impl], total = [], {}
+        for i, batch in enumerate(batches):
+            loss, ms, got, peak = _step(torch, state, batch, sch, cfg)
+            losses[impl].append(loss)
+            for name, c in got.items():
+                total[name] = total.get(name, 0) + c
+            if impl == "fused" and {n: got.get(n, 0) for n in want} != want:
+                raise AssertionError(f"fused-MLP step {i}: launches {got}, the policy implies {want}")
+        launches[impl] = total
+        print(f"[fused mlp train] mlp_impl={impl}: losses {losses[impl]}  launches over 5 steps "
+              f"{total}")
+        del state
+    print(f"[fused mlp train] launches a step implied by remat_policy='attn': {want}")
+    if launches["dense"].get("fused_mlp", 0):
+        raise AssertionError("the dense MLP launched K11")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["fused"], losses["dense"])]
+    print(f"[fused mlp train] loss |fused - dense| / |dense| per step {[f'{r:.3e}' for r in rel]} "
+          f"(bound {LOSS_RTOL})")
+    if not (all(math.isfinite(x) for x in losses["fused"]) and max(rel) <= LOSS_RTOL):
+        raise AssertionError("the fused-MLP DINO steps disagree with the dense ones")
+
+    # Remat on the card: one state; a warm-up step for each configuration,
+    # then 3 rounds that take 2 steps of each in turn, so a drift of the
+    # host's speed falls on every configuration alike. Step ms: CUDA events
+    # around the step, the host's issuing in it where the card waits on it
+    # (the step syncs the host; device busy time is profile_torch_step.py's).
+    state = init_dino_train_state(cfg, 0, "cuda")
+    runs = [(impl, policy) for impl in ("dense", "fused") for policy in REMAT_RUNS]
+    seen = {run: [] for run in runs}
+    for r in range(4):
+        for impl, policy in runs:
+            _set_backbones(torch, state, mlp_impl=impl, remat=policy is not None,
+                           remat_policy=policy or "attn")
+            for j in range(1 if r == 0 else 2):
+                result = _step(torch, state, batches[(r + j) % 5], sch, cfg)
+                if r:
+                    seen[(impl, policy)].append(result)
+    for impl, policy in runs:
+        results = seen[(impl, policy)]
+        ms = sorted(x[1] for x in results)
+        got = results[-1][2]
+        reruns_attn = policy == "full"
+        expect = {"attention_fwd": depth * (teacher_calls + student_calls * (1 + reruns_attn)),
+                  "attention_bwd": depth * student_calls,
+                  "fused_mlp": 0 if impl == "dense" else
+                  depth * (teacher_calls + student_calls * (1 + (policy is not None)))}
+        counts = {n: got.get(n, 0) for n in expect}
+        print(f"[remat] mlp_impl={impl} remat={policy or 'off'}: step ms median "
+              f"{(ms[2] + ms[3]) / 2:.3f} (of {[round(x, 3) for x in ms]})  peak "
+              f"{max(x[3] for x in results):.3f} GiB  launches a step {counts} "
+              f"(implied {expect})  [{smi}]")
+        if any({n: x[2].get(n, 0) for n in expect} != expect for x in results):
+            raise AssertionError(f"remat {policy}: launches {counts}, the policy implies {expect}")
+    return launches["fused"]
+
+
 def main() -> int:
     import torch
 
@@ -613,6 +911,9 @@ def main() -> int:
     seg_launches = phase_seg(torch, smi)
     win_err, win_t = phase_window_attention(torch)
     swin_launches = phase_swin_train(torch, smi)
+    mlp_err, mlp_t = phase_fused_mlp(torch)
+    wins_err, wins_t, wins_launches = phase_window_attention_stacked(torch, win_t)
+    mlp_launches = phase_fused_mlp_train(torch, smi)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -648,6 +949,18 @@ def main() -> int:
             name, "window_attention.cu", f"dinomc_tpu/ops/pallas/window_attention.py:{line}",
             swin_launches.get(name, 0), err, stage1[f"{key}_ms"], stage1[f"{key}_plain_ms"],
             stage1[f"{key}_bound"], stage1[f"{key}_library_ms"]))
+    stacked1 = wins_t[0]
+    for name, line, key, err in (("window_attention_stacked_fwd", 558, "fwd", wins_err["fwd"]),
+                                 ("window_attention_stacked_bwd", 591, "bwd", wins_err["grad"])):
+        kernels.append(entry(
+            name, "window_attention_stacked.cu",
+            f"dinomc_tpu/ops/pallas/window_attention.py:{line}", wins_launches.get(name, 0), err,
+            stacked1[f"{key}_ms"], stacked1[f"{key}_plain_ms"], stacked1[f"{key}_bound"],
+            stacked1[f"{key}_library_ms"]))
+    kernels.append(entry(
+        "fused_mlp", "fused_mlp.cu", "dinomc_tpu/ops/pallas/fused_mlp.py:64",
+        mlp_launches.get("fused_mlp", 0), mlp_err, mlp_t["ms"], mlp_t["plain_ms"], mlp_t["bound"],
+        mlp_t["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

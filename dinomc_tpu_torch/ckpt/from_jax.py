@@ -5,7 +5,9 @@ of the JAX package's exporters), which emit the reference's
 timm/DINO/torchvision/mmseg state-dict layout; the port's modules use the
 same names, so each load is ``load_state_dict(strict=True)``. Inputs are
 numpy trees (or anything ``np.asarray`` reads, such as host copies of JAX
-arrays). A UPerNet takes a ``(params, bn_state)`` pair.
+arrays). A UPerNet takes a ``(params, bn_state)`` pair. A ViT loads the
+same tree whatever its ``mlp_impl``: the dense and the fused MLP read the
+same ``fc1``/``fc2`` tensors.
 """
 
 from __future__ import annotations

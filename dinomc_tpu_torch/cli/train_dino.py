@@ -25,6 +25,7 @@ from typing import List
 import numpy as np
 
 from dinomc_tpu_torch.cli.common import bool_flag
+from dinomc_tpu_torch.models.vit import REMAT_POLICIES
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -81,8 +82,10 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--fsdp", default=False, type=bool_flag)
     p.add_argument("--grad_accum_steps", default=1, type=int)
     p.add_argument("--remat_policy", default="attn", type=str,
-                   help="only the default is accepted: the port keeps every "
-                        "activation, which computes the same numbers")
+                   choices=sorted(REMAT_POLICIES),
+                   help="ViT selective rematerialization: which block "
+                        "activations the backward keeps instead of recomputing "
+                        "(all compute the same numbers; see models/vit.py)")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device the step runs on (cuda, cuda:N or cpu)")
     return p
@@ -96,7 +99,6 @@ def _refuse_unported(args) -> None:
         (args.grad_accum_steps > 1, "--grad_accum_steps > 1",
          "queue 1 #7 (dino_train_step_accum)"),
         (args.bands is not None, "--bands", "queue 1 #10 (multispectral host path)"),
-        (args.remat_policy != "attn", "--remat_policy", "queue 1 #3 (remat)"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -173,6 +175,7 @@ def build_config(args, niter_per_ep: int):
         freeze_last_layer=args.freeze_last_layer,
         optimizer=args.optimizer,
         niter_per_ep=niter_per_ep,
+        remat_policy=args.remat_policy,
     )
     return mc_cfg, cfg
 

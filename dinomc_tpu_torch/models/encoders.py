@@ -34,6 +34,7 @@ class EncoderConfig:
     patch_size: int = 16  # ViT only: Swin-T's patch is 4, as in the JAX package
     img_size: int = 224
     drop_path_rate: float = 0.0  # student only
+    remat_policy: str = "attn"  # ViT only; see models/vit.ViTConfig
     compute_dtype: torch.dtype = torch.bfloat16
     gelu_approx: bool = True
 
@@ -59,6 +60,7 @@ class EncoderConfig:
             patch_size=self.patch_size,
             img_size=self.img_size,
             drop_path_rate=self.drop_path_rate,
+            remat_policy=self.remat_policy,
             compute_dtype=self.compute_dtype,
             gelu_approx=self.gelu_approx,
         )

@@ -9,26 +9,74 @@ the stride-p patch embed, bicubic position-embedding interpolation with the
 reference's ``+0.1`` scale fudge, pre-norm blocks with f32 LayerNorm
 statistics, per-sample DropPath (one keep-decision per packed segment), and
 every matmul weight cast to ``compute_dtype`` at use. Casts are explicit;
-no autocast.
+no autocast. ``mlp_impl='fused'`` sends the MLP to K11
+(``ops/hopper/fused_mlp.py``) with the same ``fc1``/``fc2`` tensors.
+
+Remat (``ViTConfig.remat``, ``remat_policy``; the JAX package's
+``_remat_block``): each block runs under ``torch.utils.checkpoint`` (not
+reentrant) wherever autograd records, so its backward replays the block from
+its input, keeping only what the policy names. The JAX package names ``qkv``
+(the qkv projection), ``attn_out`` (the attention output) and ``mlp_h`` (the
+GELU'd hidden activation of the dense MLP; the fused MLP has none), and
+``dots`` keeps every matmul output. Two mechanisms, because a kernel launch
+is not a dispatched op:
+
+- ``attn_out``: the attention kernels' forward launches (K1, K4) go through
+  ``ops/remat.kept``, which records their output and log-sum-exp (all that
+  K2 and K5/K6 read) in the forward and hands them back in the replay, so
+  the replay launches no attention forward.
+- ``qkv``, ``mlp_h``, ``dots``: a selective-checkpoint policy
+  (``create_selective_checkpoint_contexts``) keeps every dispatched op run
+  inside a scope of that name (``dots``: every ``mm``/``addmm``). It
+  intercepts every op of the block in Python, a host cost that ``full`` and
+  ``attn`` do not pay.
+
+K11's launch is kept by neither: no policy names it, and torch's replay runs
+the block up to the last tensor the backward reads (DropPath's keep mask
+after the MLP, or the fused MLP's saved inputs, which autograd packs after
+its forward ran), so under remat the student's backward launches K11 once
+more a block (the JAX package's recompute drops it as dead code). DropPath
+keep-decisions are drawn once, outside the checkpointed blocks, so a replay
+sees the same masks. Every policy computes the same numbers as no remat.
 
 Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi``,
-``vit_forward_sp``, ``vit_last_selfattention``, remat policies and
-``mlp_impl='fused'``.
+``vit_forward_sp`` and ``vit_last_selfattention``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
+from dinomc_tpu_torch.ops import remat
 from dinomc_tpu_torch.ops.attention import mha
+from dinomc_tpu_torch.ops.hopper.fused_mlp import fused_mlp
+
+# What each remat policy keeps (the JAX package's ``_remat_block``).
+REMAT_POLICIES = {
+    "full": (),
+    "dots": ("dots",),
+    "dots+attn": ("dots", "attn_out"),
+    "attn": ("attn_out",),
+    "attn+mlp": ("attn_out", "mlp_h"),
+    "qkv+attn": ("qkv", "attn_out"),
+    "qkv+attn+mlp": ("qkv", "attn_out", "mlp_h"),
+}
+MLP_IMPLS = ("dense", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +94,19 @@ class ViTConfig:
     # tanh-approximate GELU (True, the JAX package's training default) vs
     # exact erf (False, the reference's nn.GELU).
     gelu_approx: bool = True
+    # 'dense': fc1, GELU, fc2 as three ops; 'fused': K11 (ops/hopper/fused_mlp.py).
+    mlp_impl: str = "dense"
+    # Recompute each block in the backward, keeping what ``remat_policy``
+    # names (REMAT_POLICIES; module docstring).
+    remat: bool = True
+    remat_policy: str = "attn"
+
+    def __post_init__(self):
+        if self.mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"mlp_impl must be one of {MLP_IMPLS}, got {self.mlp_impl!r}")
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {sorted(REMAT_POLICIES)}, "
+                             f"got {self.remat_policy!r}")
 
     @property
     def grid(self) -> int:
@@ -242,17 +303,100 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int]) -> 
     return torch.cat([pos_embed[:, :1], patch_pos], dim=1)
 
 
+# The op-level remat names whose scope is open, per thread (autograd may
+# replay a block on its own device thread): the selective-checkpoint policy
+# reads the innermost. Forward and replay run the same code, so they see the
+# same scopes, as the policy requires.
+class _Scopes(threading.local):
+    def __init__(self):
+        self.names: list = []
+
+
+_SCOPES = _Scopes()
+
+
+@contextlib.contextmanager
+def _named(name: str):
+    """Scope of the ops producing the tensor a remat policy may keep by
+    ``name`` (the JAX package's ``checkpoint_name``)."""
+    _SCOPES.names.append(name)
+    try:
+        yield
+    finally:
+        _SCOPES.names.pop()
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class _Contexts:
+    """Context managers entered and left together."""
+
+    def __init__(self, *managers):
+        self.managers = managers
+
+    def __enter__(self):
+        self.stack = contextlib.ExitStack()
+        for m in self.managers:
+            self.stack.enter_context(m)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+
+def _remat_contexts(policy: str):
+    """``checkpoint``'s ``context_fn`` for a policy that keeps something:
+    the kernel record for ``attn_out``, the selective-checkpoint policy for
+    the op-level names."""
+    keep = REMAT_POLICIES[policy]
+    op_names = tuple(k for k in keep if k != "attn_out")
+
+    def decide(ctx, op, *args, **kwargs):
+        scopes = _SCOPES.names
+        if (scopes and scopes[-1] in op_names) or ("dots" in op_names and op in _MATMULS):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    def context_fn():
+        pairs = ([remat.contexts()] if "attn_out" in keep else []) + (
+            [create_selective_checkpoint_contexts(decide)] if op_names else [])
+        return _Contexts(*(f for f, _ in pairs)), _Contexts(*(r for _, r in pairs))
+
+    return context_fn
+
+
+def _remat(cfg: ViTConfig, fn, *args):
+    """``fn(*args)``, replayed in the backward under ``cfg``'s policy when
+    ``cfg.remat`` and autograd records (the JAX package's ``_remat_block``)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if not REMAT_POLICIES[cfg.remat_policy]:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts(cfg.remat_policy))
+
+
 def _attention(x: torch.Tensor, attn: Attention, num_heads: int, boundary: int):
     B, N, D = x.shape
     hd = D // num_heads
-    qkv = linear(x, attn.qkv).reshape(B, N, 3, num_heads, hd)
-    q, k, v = qkv.unbind(2)  # strided (B, N, h, hd) views, read in place by the kernel
+    w, b = attn.qkv.weight.to(x.dtype), attn.qkv.bias.to(x.dtype)
+    with _named("qkv"):
+        qkv = F.linear(x, w, b)
+    q, k, v = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)  # strided (B, N, h, hd) views
     out = mha(q, k, v, 1.0 / math.sqrt(hd), boundary=boundary)
     return linear(out.reshape(B, N, D), attn.proj)
 
 
-def _mlp(x: torch.Tensor, mlp: Mlp, gelu_approx: bool) -> torch.Tensor:
-    y = F.gelu(linear(x, mlp.fc1), approximate="tanh" if gelu_approx else "none")
+def _mlp(x: torch.Tensor, mlp: Mlp, gelu_approx: bool, impl: str = "dense") -> torch.Tensor:
+    if impl == "fused":
+        B, N, D = x.shape
+        dt = x.dtype
+        y = fused_mlp(x.reshape(B * N, D), mlp.fc1.weight.to(dt), mlp.fc1.bias.to(dt),
+                      mlp.fc2.weight.to(dt), mlp.fc2.bias.to(dt), gelu_approx)
+        return y.reshape(B, N, D)
+    y = linear(x, mlp.fc1)
+    with _named("mlp_h"):
+        y = F.gelu(y, approximate="tanh" if gelu_approx else "none")
     return linear(y, mlp.fc2)
 
 
@@ -276,7 +420,7 @@ def _block(x, blk: Block, cfg: ViTConfig, keep, masks, boundary: int):
     if masks is not None:
         y = _drop_path(y, keep, masks[0], boundary)
     x = x + y
-    y = _mlp(layer_norm(x, blk.norm2, eps), blk.mlp, cfg.gelu_approx)
+    y = _mlp(layer_norm(x, blk.norm2, eps), blk.mlp, cfg.gelu_approx, cfg.mlp_impl)
     if masks is not None:
         y = _drop_path(y, keep, masks[1], boundary)
     return x + y
@@ -318,7 +462,8 @@ def _run_blocks(vit, tokens, generator, deterministic, dp_masks, boundary=0):
         dp_masks = drop_path_masks(cfg, tokens.shape[0], bool(boundary), generator, tokens.device)
     x = tokens
     for i, blk in enumerate(vit.blocks):
-        x = _block(x, blk, cfg, keeps[i], None if dp_masks is None else dp_masks[i], boundary)
+        masks = None if dp_masks is None else dp_masks[i]
+        x = _remat(cfg, _block, x, blk, cfg, keeps[i], masks, boundary)
     return x
 
 
@@ -376,7 +521,7 @@ def vit_intermediate_layers(
     x = prepare_tokens(vit, x)
     taps = {}
     for i, blk in enumerate(vit.blocks[: max(out_indices) + 1]):
-        x = _block(x, blk, cfg, None, None, 0)
+        x = _remat(cfg, _block, x, blk, cfg, None, None, 0)
         taps[i] = x
     out = [taps[i] for i in out_indices]
     if apply_norm:

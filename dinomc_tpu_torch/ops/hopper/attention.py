@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from dinomc_tpu_torch.ops.hopper import _build
+from dinomc_tpu_torch.ops.remat import kept
 
 # The crop-packing planner's length bound, kept from the TPU kernel
 # (ops/pallas/attention.py:45) so the same pairs form. The CUDA kernel tiles
@@ -110,11 +111,13 @@ def attention_bwd(q, k, v, o, lse, do, scale: float, boundary: int):
 
 class FusedMHA(torch.autograd.Function):
     """Autograd wrapper: K1 forward, K2 backward. Saves q, k, v, o and the
-    (B, h, N) log-sum-exp; P is recomputed in the backward."""
+    (B, h, N) log-sum-exp; P is recomputed in the backward. A remat replay
+    that keeps the attention output gets o and the log-sum-exp back from
+    ``ops/remat.kept`` instead of launching K1 again."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, boundary):
-        o, lse = attention_fwd(q, k, v, scale, boundary)
+        o, lse = kept(attention_fwd, q, k, v, scale, boundary)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.boundary = scale, boundary
         return o

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from dinomc_tpu_torch.ops.hopper import _build
+from dinomc_tpu_torch.ops.remat import kept
 from dinomc_tpu_torch.ops.hopper.attention import _kernel_args
 
 NAME = "long_mha"
@@ -93,11 +94,12 @@ def long_attention_bwd(q, k, v, o, lse, do, scale: float):
 
 class LongMHA(torch.autograd.Function):
     """Autograd wrapper: K4 forward, K5 + K6 backward. Saves q, k, v, o and
-    the (B, h, N) log-sum-exp; P is recomputed in the backward."""
+    the (B, h, N) log-sum-exp; P is recomputed in the backward. Kept across a
+    remat replay as K1 is (``ops/remat.kept``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        o, lse = long_attention_fwd(q, k, v, scale)
+        o, lse = kept(long_attention_fwd, q, k, v, scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o

@@ -1,21 +1,26 @@
 """Swin window attention: the CUDA kernels K7 (forward) and K8 (backward)
-in ``csrc/window_attention.cu``, and their plain PyTorch version.
+in ``csrc/window_attention.cu``, their head-stacked variant K9 (forward) and
+K10 (backward) in ``csrc/window_attention_stacked.cu``, and the plain
+PyTorch version of all four.
 
 Counterpart of ``dinomc_tpu/ops/pallas/window_attention.py``
-(``packed_window_attention``, ``variant='perhead'``). The function is per
-window softmax(Q K^T / sqrt(hd) + bias[h] + mask[w mod nW]) V over 49-token
-windows, heads of 32 channels. The TPU kernel packed G windows into one
-score product behind a block-diagonal mask; the CUDA kernels compute one
-window and one head at a time, so nothing of that packing (``pick_group``,
-the rank-49 augmentation) is kept. The backward's dbias comes from per-block
+(``packed_window_attention``, ``variant='perhead'`` and ``'stacked'``). The
+function is per window softmax(Q K^T / sqrt(hd) + bias[h] + mask[w mod nW])
+V over 49-token windows, heads of 32 channels; the two variants compute the
+same function. The TPU kernel packed G windows into one score product behind
+a block-diagonal mask; the CUDA kernels compute one window at a time, so
+nothing of that packing (``pick_group``, the rank-49 augmentation, the
+stacked variant's block-stacked K'/V' operands) is kept. K7/K8 give a block
+one head over many windows; K9/K10 give a block a chunk of heads of each of
+its windows, one warp a head. The backward's dbias comes from per-block
 partials summed in a fixed order (no atomics) and stays in f32; the TPU
-kernel rounds dS to bf16 before summing it.
+kernels round dS to bf16 before summing it.
 
-``window_attention`` launches the kernels for CUDA tensors (bf16 q/k/v
-only) and runs ``window_attention_reference`` for CPU tensors; there is no
-fallback between the two on a CUDA tensor. The relative-position gather
-``table[index]`` stays a PyTorch op in the caller, so the table's gradient
-comes from autograd through the gather.
+``window_attention`` launches the kernels of its ``variant`` for CUDA
+tensors (bf16 q/k/v only) and runs ``window_attention_reference`` for CPU
+tensors; there is no fallback between the two on a CUDA tensor. The
+relative-position gather ``table[index]`` stays a PyTorch op in the caller,
+so the table's gradient comes from autograd through the gather.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from dinomc_tpu_torch.ops.hopper import _build
 WINDOW_TOKENS = 49  # a 7 x 7 window
 HEAD_DIM = 32
 BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM
+# Most heads a block of K9 / K10 holds in shared memory (csrc/
+# window_attention_stacked.cu): the backward keeps each head's whole P and dS.
+STACKED_HEADS = {"fwd": 8, "bwd": 4}
 
 
 def window_attention_reference(
@@ -59,10 +67,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _kernel_args(q, k, v, bias, mask, heads: int):
+def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None):
     """Validate the kernels' inputs; returns (q, k, v, bias, mask, geometry)
     with geometry = (nB, nW, mask_rows, wpc, sw, sn), copying q/k/v only
-    when they do not share a kernel-readable layout."""
+    when they do not share a kernel-readable layout. ``chunks``: the blocks
+    a window's heads take (``heads`` for K7/K8, one a head)."""
     name = "window_attention"
     _build.require_cuda(name, q, k, v, bias, *(() if mask is None else (mask,)))
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -91,7 +100,7 @@ def _kernel_args(q, k, v, bias, mask, heads: int):
     if not ok:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     blocks = BLOCKS_PER_SM * _sm_count(q.device.index or 0)
-    wpc = max(1, -(-nB * heads // blocks))
+    wpc = max(1, -(-nB * (chunks or heads) // blocks))
     return q, k, v, bias.contiguous(), mask, (nB, nW, mask_rows, wpc) + q.stride()[:2]
 
 
@@ -131,31 +140,87 @@ def window_attention_bwd(q, k, v, bias, mask, do, heads: int):
     return dq, dk, dv, dbias
 
 
+def head_chunk(heads: int, most: int) -> int:
+    """Heads a block of K9 / K10 takes: the largest divisor of ``heads`` that
+    is at most ``most``."""
+    return max(d for d in range(1, min(heads, most) + 1) if heads % d == 0)
+
+
+def window_attention_stacked_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
+    """K9: returns o, (nB, 49, C) bf16 contiguous."""
+    hc = head_chunk(heads, STACKED_HEADS["fwd"])
+    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
+        q, k, v, bias, mask, heads, heads // hc)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _build.library().dinomc_wins_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), o.data_ptr(),
+        nB, heads, hc, nW, mask_rows, wpc, sw, sn, o.stride(0), o.stride(1),
+        1.0 / math.sqrt(HEAD_DIM), _build.stream_handle(q),
+    )
+    _build.check(err, "stacked window attention forward")
+    _build.LAUNCHES["window_attention_stacked_fwd"] += 1
+    return o
+
+
+def window_attention_stacked_bwd(q, k, v, bias, mask, do, heads: int):
+    """K10 (and its fixed-order dbias reduction): returns (dq, dk, dv), each
+    (nB, 49, C) bf16 contiguous, and dbias (heads, 49, 49) f32."""
+    hc = head_chunk(heads, STACKED_HEADS["bwd"])
+    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
+        q, k, v, bias, mask, heads, heads // hc)
+    do = do.to(torch.bfloat16).contiguous()
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    part = torch.empty((-(-nB // wpc), heads, WINDOW_TOKENS, WINDOW_TOKENS),
+                       dtype=torch.float32, device=q.device)
+    dbias = torch.empty((heads, WINDOW_TOKENS, WINDOW_TOKENS), dtype=torch.float32, device=q.device)
+    err = _build.library().dinomc_wins_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), nB, heads, hc, nW, mask_rows,
+        wpc, sw, sn, do.stride(0), do.stride(1), 1.0 / math.sqrt(HEAD_DIM),
+        _build.stream_handle(q),
+    )
+    _build.check(err, "stacked window attention backward")
+    _build.LAUNCHES["window_attention_stacked_bwd"] += 1
+    return dq, dk, dv, dbias
+
+
+_VARIANTS = {  # variant -> (forward, backward) launchers
+    "perhead": (window_attention_fwd, window_attention_bwd),
+    "stacked": (window_attention_stacked_fwd, window_attention_stacked_bwd),
+}
+
+
 class WindowAttention(torch.autograd.Function):
-    """Autograd wrapper: K7 forward, K8 backward. Saves q, k, v, bias and
-    the mask; P is recomputed in the backward. The mask is a constant."""
+    """Autograd wrapper: K7 forward and K8 backward, or K9 and K10 for
+    ``variant='stacked'``. Saves q, k, v, bias and the mask; P is
+    recomputed in the backward. The mask is a constant."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, heads):
+    def forward(ctx, q, k, v, bias, mask, heads, variant="perhead"):
         ctx.save_for_backward(q, k, v, bias, mask)
-        ctx.heads = heads
-        return window_attention_fwd(q, k, v, bias, mask, heads)
+        ctx.heads, ctx.variant = heads, variant
+        return _VARIANTS[variant][0](q, k, v, bias, mask, heads)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, mask = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_bwd(q, k, v, bias, mask, do, ctx.heads)
-        return dq, dk, dv, dbias, None, None
+        dq, dk, dv, dbias = _VARIANTS[ctx.variant][1](q, k, v, bias, mask, do, ctx.heads)
+        return dq, dk, dv, dbias, None, None, None
 
 
 def window_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    mask: Optional[torch.Tensor], heads: int,
+    mask: Optional[torch.Tensor], heads: int, variant: str = "perhead",
 ) -> torch.Tensor:
     """Window attention over q, k, v (nB, 49, heads * 32) with the relative
     bias (heads, 49, 49) f32 and an optional (nW, 49 or 1, 49) f32 mask for
-    window ``w mod nW``. CUDA tensors go through the kernels (bf16 only);
-    CPU tensors through ``window_attention_reference``."""
+    window ``w mod nW``. CUDA tensors go through the kernels of ``variant``
+    (``'perhead'``: K7/K8, ``'stacked'``: K9/K10; bf16 only); CPU tensors
+    through ``window_attention_reference``, the plain version of both."""
+    if variant not in _VARIANTS:
+        raise ValueError(f"window_attention variant must be one of {sorted(_VARIANTS)}, got {variant!r}")
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, mask, heads)
-    return WindowAttention.apply(q, k, v, bias, mask, int(heads))
+    return WindowAttention.apply(q, k, v, bias, mask, int(heads), variant)

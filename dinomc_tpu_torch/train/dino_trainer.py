@@ -62,6 +62,9 @@ class DinoConfig:
     optimizer: str = "adamw"
     niter_per_ep: int = 1
     global_crop_size: int = 224
+    # ViT selective remat (models/vit.ViTConfig.remat_policy): every policy
+    # computes the same numbers; it trades recompute against kept activations.
+    remat_policy: str = "attn"
     # "bfloat16" is the training path; "float32" + gelu_approx=False is the
     # mode the parity tests hold against the JAX package and the reference.
     compute_dtype: str = "bfloat16"
@@ -77,6 +80,7 @@ class DinoConfig:
             patch_size=self.patch_size,
             img_size=self.global_crop_size,
             drop_path_rate=self.drop_path_rate if student else 0.0,
+            remat_policy=self.remat_policy,
             compute_dtype=self.dtype,
             gelu_approx=self.gelu_approx,
         )

@@ -4,11 +4,13 @@
 Run from the root of a checkout on a machine with a CUDA card:
 
     python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t]
+    python scripts/profile_torch_step.py --remat_policy off --mlp_impl fused
     python scripts/profile_torch_step.py --task seg [--train_backbone]
 
 ``--task dino`` (the default) drives the port's DINO-MC step
 (``dinomc_tpu_torch``) at ViT-S/8 (or Swin-T with ``--arch swin_t``),
-out_dim 65536, batch 8; ``--task seg``
+out_dim 65536, batch 8, under the ViT's ``--remat_policy`` (the CLI's, or
+``off`` for ``ViTConfig.remat=False``) and ``--mlp_impl``; ``--task seg``
 its UPerNet fine-tune step at ViT-S/8, 512 px (4097 tokens), batch 4, 8
 classes, decoder-only unless ``--train_backbone``. Weights come from a
 seed and random images are made on the device; the CLIs' flag defaults
@@ -51,6 +53,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from dinomc_tpu_torch.models.vit import MLP_IMPLS, REMAT_POLICIES  # noqa: E402
 from dinomc_tpu_torch.ops.hopper import _build  # noqa: E402
 
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
@@ -58,7 +61,8 @@ WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
 # hand-written kernels, by the prefix of their CUDA function names
 KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_", "long_fwd_kernel", "long_dq_kernel",
                 "long_dkv_kernel", "mean_gray_kernel", "photometric_kernel", "win_fwd_kernel",
-                "win_bwd_kernel", "win_dbias_reduce_kernel")
+                "win_bwd_kernel", "win_dbias_reduce_kernel", "wins_fwd_kernel", "wins_bwd_kernel",
+                "wins_dbias_reduce_kernel", "fused_mlp_kernel")
 
 
 def _busy_and_span(events):
@@ -75,8 +79,10 @@ def _busy_and_span(events):
     return busy / 1e3, (max(b for _, b in iv) - iv[0][0]) / 1e3
 
 
-def _dino_step(dev, arch: str):
+def _dino_step(dev, arch: str, remat_policy: str, mlp_impl: str):
     """The DINO-MC step at batch 8; returns (step(ev), batch, split names)."""
+    import dataclasses
+
     from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
     from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
     from dinomc_tpu_torch.train.dino_trainer import (
@@ -87,11 +93,16 @@ def _dino_step(dev, arch: str):
     args = get_args_parser().parse_args([
         "--arch", arch, "--patch_size", "8", "--out_dim", "65536",
         "--batch_size_per_gpu", str(batch),
+        "--remat_policy", "attn" if remat_policy == "off" else remat_policy,
     ])
     niter = 1000
     mc_cfg, cfg = build_config(args, niter)
     sch = build_schedules(args, batch, niter)
     state = init_dino_train_state(cfg, args.seed, dev)
+    if arch != "swin_t":
+        for model in (state.student, state.teacher):
+            model["backbone"].cfg = dataclasses.replace(
+                model["backbone"].cfg, remat=remat_policy != "off", mlp_impl=mlp_impl)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     images = torch.rand(batch, args.image_size, args.image_size, 3, generator=gen, device=dev)
 
@@ -151,6 +162,10 @@ def main() -> int:
                    help="seg: train the ViT too (default: decoder-only)")
     p.add_argument("--arch", default="vit_small", choices=["vit_small", "swin_t"],
                    help="dino: the encoder (ViT-S/8 or Swin-T)")
+    p.add_argument("--remat_policy", default="attn", choices=["off", *sorted(REMAT_POLICIES)],
+                   help="dino, ViT: the block remat policy ('off': no remat)")
+    p.add_argument("--mlp_impl", default="dense", choices=list(MLP_IMPLS),
+                   help="dino, ViT: the MLP form ('fused': K11)")
     opt = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: torch sees no CUDA device")
@@ -165,7 +180,7 @@ def main() -> int:
     if opt.task == "seg":
         step_ev, batch, parts = _seg_step(dev, opt.train_backbone)
     else:
-        step_ev, batch, parts = _dino_step(dev, opt.arch)
+        step_ev, batch, parts = _dino_step(dev, opt.arch, opt.remat_policy, opt.mlp_impl)
 
     def step(ev=None):
         step_ev(ev or [torch.cuda.Event() for _ in range(4)])
@@ -216,7 +231,8 @@ def main() -> int:
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "task": opt.task + ("+backbone" if opt.train_backbone else "")
-        + (f" {opt.arch}" if opt.task == "dino" else ""),
+        + (f" {opt.arch}" if opt.task == "dino" else "")
+        + (f" remat={opt.remat_policy} mlp={opt.mlp_impl}" if opt.task == "dino" else ""),
         "batch": batch,
         "unprofiled_ms": {
             **dict(zip(parts, med)),

@@ -42,3 +42,19 @@ def test_every_entry_point_has_a_signature():
     sources = "".join(p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu")))
     for name in _build._SIGNATURES:
         assert f'extern "C" int {name}(' in sources, name
+
+
+def test_signatures_match_the_c_parameters():
+    """Each ctypes signature has the C entry point's parameters in order: a
+    pointer for each pointer, c_int for int, c_longlong for long long,
+    c_float for float (a mismatch passes garbage, or cuts a pointer)."""
+    import ctypes
+    import re
+
+    kinds = {ctypes.c_void_p: "ptr", ctypes.c_int: "int", ctypes.c_longlong: "long long",
+             ctypes.c_float: "float"}
+    sources = "".join(p.read_text() for p in sorted(_build.CSRC_DIR.glob("*.cu")))
+    for name, argtypes in _build._SIGNATURES.items():
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', sources).group(1)
+        got = ["ptr" if "*" in p else " ".join(p.split()[:-1]) for p in params.split(",")]
+        assert got == [kinds[a] for a in argtypes], name

@@ -49,7 +49,7 @@ def test_train_then_resume(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--data_mode", "tp"], ["--model_parallel", "2"], ["--fsdp", "true"],
     ["--grad_accum_steps", "2"], ["--bands", "B4", "B3", "B2"],
-    ["--arch", "resnet50"], ["--optimizer", "lars"], ["--remat_policy", "full"],
+    ["--arch", "resnet50"], ["--optimizer", "lars"], ["--arch", "xcit_small_12"],
 ], ids=lambda f: f[0].lstrip("-") + "-" + f[1])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,12 +2,13 @@
 package's.
 
 The plain version is held to JAX ``packed_window_attention`` in Pallas
-interpret mode and to the einsum core of tests/test_window_attention.py,
-on that file's cases (shift masks, the 24-head case, both grouping regimes
-of the JAX kernel) and on pad-only (nW, 1, 49) and shift + pad masks, in f32
-at that file's bounds: forward 2e-5, dQ/dK/dV/dbias 2e-4. The CUDA kernels
-K7/K8 are held to the plain version on the card (``cuda``-marked, skipped
-without one) in bf16 at chip_smoke.py's bounds.
+interpret mode, both variants (``'perhead'``, K7/K8's, and ``'stacked'``,
+K9/K10's), and to the einsum core of tests/test_window_attention.py, on that
+file's cases (shift masks, the 24-head case, both grouping regimes of the
+JAX kernel) and on pad-only (nW, 1, 49) and shift + pad masks, in f32 at
+that file's bounds: forward 2e-5, dQ/dK/dV/dbias 2e-4. The CUDA kernels
+K7/K8 and K9/K10 are held to the plain version on the card
+(``cuda``-marked, skipped without one) in bf16 at chip_smoke.py's bounds.
 """
 
 import math
@@ -33,6 +34,12 @@ MASKED = [(8, 192, 6, "pad", 4), (8, 96, 3, "shift+pad", 4)]
 ALL = [(nB, C, h, nW, g) for nB, C, h, nW, g in CASES] + MASKED
 
 
+def _variants(cases):
+    """Each case with both variants; a perhead case keeps its plain id."""
+    return [pytest.param(*c, v, id="-".join(map(str, c)) + ("-stacked" if v == "stacked" else ""))
+            for v in ("perhead", "stacked") for c in cases]
+
+
 def _mask(kind, nW):
     if kind is None:
         return None
@@ -55,29 +62,32 @@ def _n_windows(mask, nB):
     return nB if mask is None else mask.shape[0]
 
 
-@pytest.mark.parametrize("nB,C,heads,kind,group", ALL)
-def test_reference_matches_jax_kernel_and_einsum(nB, C, heads, kind, group):
+@pytest.mark.parametrize("nB,C,heads,kind,group,variant", _variants(ALL))
+def test_reference_matches_jax_kernel_and_einsum(nB, C, heads, kind, group, variant):
     q, k, v, bias, mask = _data(0, nB, C, heads, kind)
-    out = wa.window_attention_reference(t(q), t(k), t(v), t(bias), None if mask is None else t(mask), heads)
+    out = wa.window_attention(t(q), t(k), t(v), t(bias), None if mask is None else t(mask), heads,
+                              variant)
     ker = packed_window_attention(*map(jnp.asarray, (q, k, v, bias)), mask, heads,
-                                  _n_windows(mask, nB), group=group, interpret=True)
+                                  _n_windows(mask, nB), group=group, interpret=True,
+                                  variant=variant)
     np.testing.assert_allclose(n(out), np.asarray(ker), rtol=2e-5, atol=2e-5)
     if mask is None or mask.shape[1] == WW:  # the einsum core takes full masks only
         np.testing.assert_allclose(n(out), np.asarray(_xla_core(q, k, v, jnp.asarray(bias), mask)),
                                    rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("nB,C,heads,kind,group", CASES[:3] + MASKED)
-def test_reference_grads_match_jax(nB, C, heads, kind, group):
+@pytest.mark.parametrize("nB,C,heads,kind,group,variant", _variants(CASES[:3] + MASKED))
+def test_reference_grads_match_jax(nB, C, heads, kind, group, variant):
     q, k, v, bias, mask = _data(1, nB, C, heads, kind)
     nW = _n_windows(mask, nB)
 
     def loss_ker(*a):
-        return (packed_window_attention(*a, mask, heads, nW, group=group, interpret=True) ** 2).sum()
+        return (packed_window_attention(*a, mask, heads, nW, group=group, interpret=True,
+                                        variant=variant) ** 2).sum()
 
     g_ker = jax.grad(loss_ker, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (q, k, v, bias)))
     xs = [t(x).requires_grad_() for x in (q, k, v, bias)]
-    out = wa.window_attention(*xs, None if mask is None else t(mask), heads)
+    out = wa.window_attention(*xs, None if mask is None else t(mask), heads, variant)
     g = torch.autograd.grad((out ** 2).sum(), xs)
     for a, b, name in zip(g, g_ker, ("dq", "dk", "dv", "dbias")):
         np.testing.assert_allclose(n(a), np.asarray(b), rtol=2e-4, atol=2e-4, err_msg=name)
@@ -103,8 +113,21 @@ def test_masks_and_index_match_jax():
 def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(2, WW, 96, dtype=torch.bfloat16)
     bias = torch.zeros(3, WW, WW)
+    for fwd in (wa.window_attention_fwd, wa.window_attention_stacked_fwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            fwd(q, q, q, bias, None, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        wa.window_attention_fwd(q, q, q, bias, None, 3)
+        wa.window_attention_stacked_bwd(q, q, q, bias, None, q, 3)
+    with pytest.raises(ValueError, match="variant"):
+        wa.window_attention(q, q, q, bias, None, 3, "blocked")
+
+
+@pytest.mark.parametrize("heads,fwd,bwd", [(3, 3, 3), (6, 6, 3), (12, 6, 4), (24, 8, 4), (2, 2, 2)])
+def test_stacked_head_chunks(heads, fwd, bwd):
+    """K9 holds up to 8 heads a block, K10 up to 4, always a divisor of the
+    head count: Swin-T's stages take 1/1/2/3 and 1/2/3/6 chunks."""
+    assert wa.head_chunk(heads, wa.STACKED_HEADS["fwd"]) == fwd
+    assert wa.head_chunk(heads, wa.STACKED_HEADS["bwd"]) == bwd
 
 
 # (what, nB, heads, mask kind); the first four are the stage shapes of the
@@ -126,8 +149,11 @@ def card_mask(kind, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES)
-def test_kernels_match_plain_on_card(cuda_device, what, nB, heads, kind):
+@pytest.mark.parametrize("what,nB,heads,kind,variant", _variants(CARD_SHAPES))
+def test_kernels_match_plain_on_card(cuda_device, what, nB, heads, kind, variant):
+    fwd_name, bwd_name = {"perhead": ("window_attention_fwd", "window_attention_bwd"),
+                          "stacked": ("window_attention_stacked_fwd",
+                                      "window_attention_stacked_bwd")}[variant]
     C = heads * 32
     gen = torch.Generator(device="cuda").manual_seed(nB + heads)
     qkv = torch.randn(nB, WW, 3 * C, generator=gen, device="cuda").bfloat16()
@@ -136,11 +162,11 @@ def test_kernels_match_plain_on_card(cuda_device, what, nB, heads, kind):
     mask = card_mask(kind, cuda_device)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     before = dict(_build.LAUNCHES)
-    o = wa.window_attention_fwd(q, k, v, bias, mask, heads)
-    grads = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
+    o = getattr(wa, fwd_name)(q, k, v, bias, mask, heads)
+    grads = getattr(wa, bwd_name)(q, k, v, bias, mask, do, heads)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["window_attention_fwd"] == before.get("window_attention_fwd", 0) + 1
-    assert _build.LAUNCHES["window_attention_bwd"] == before.get("window_attention_bwd", 0) + 1
+    assert _build.LAUNCHES[fwd_name] == before.get(fwd_name, 0) + 1
+    assert _build.LAUNCHES[bwd_name] == before.get(bwd_name, 0) + 1
     xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
     ref = wa.window_attention_reference(*xs, mask, heads)
     g_ref = torch.autograd.grad(ref, xs, do)
@@ -151,15 +177,16 @@ def test_kernels_match_plain_on_card(cuda_device, what, nB, heads, kind):
 
 
 @pytest.mark.cuda
-def test_dbias_is_deterministic_on_card(cuda_device):
+@pytest.mark.parametrize("bwd", ["window_attention_bwd", "window_attention_stacked_bwd"])
+def test_dbias_is_deterministic_on_card(cuda_device, bwd):
     nB, heads = 256, 6
     C = heads * 32
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, do = (torch.randn(nB, WW, C, generator=gen, device="cuda").bfloat16() for _ in range(4))
     bias = torch.randn(heads, WW, WW, generator=gen, device="cuda")
     mask = card_mask(("shift", 28), cuda_device)
-    first = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
-    again = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
+    first = getattr(wa, bwd)(q, k, v, bias, mask, do, heads)
+    again = getattr(wa, bwd)(q, k, v, bias, mask, do, heads)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     assert math.isfinite(first[3].abs().sum().item())
