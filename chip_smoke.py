@@ -9,6 +9,8 @@ script exits non-zero:
    (``nvcc`` from ``dinomc_tpu_torch/csrc``, timed);
 2. attention K1 (forward) and K2 (backward) against their plain version
    on the card, in bf16, at the main path's shapes and a few small ones;
+   K2's gradients bit-identical on a repeated call; K2 timed whole and as
+   its two launches (dQ, dK/dV) beside SDPA's dq and dk/dv;
 3. photometric K3 against its plain version at 224 and 84 px, with rows
    that cover every branch;
 4. the real entry point, ``dinomc_tpu_torch.cli.train_dino.train_dino``,
@@ -17,7 +19,7 @@ script exits non-zero:
 5. long-sequence attention K4 (forward), K5 (dQ) and K6 (dK/dV) against
    their plain version on the card, in bf16, at the segmentation path's
    shapes (4097 tokens at 512 px, patch 8), past the TPU kernel's 5120 cap,
-   and a few ragged small ones;
+   and a few ragged small ones; K4 timed with and without the host's cost;
 6. the segmentation entry point, ``dinomc_tpu_torch.cli.train_seg.train_seg``,
    twice at the published widths (ViT-S/8 UPerNet, 512 px, batch 4, 8 UAVid
    classes, synthetic data, weights from a seed): decoder-only and with the
@@ -61,9 +63,11 @@ Every time in that line is device time: CUDA events around 10 calls
 that holds the card until the host has issued them all, so the card runs
 them back to back and the host's cost of issuing them is not in it; the
 script checks that the card was still spinning when the last call was
-queued, and fails if it never was. A ``host_`` time (phase 7) is CUDA
+queued, and fails if it never was. A ``host_`` time is CUDA
 events around 10 calls issued back to back with no spin kernel, so it also
-holds the host's cost of issuing them where that exceeds the device's.
+holds the host's cost of issuing them where that exceeds the device's
+(phases 2, 5 and 7; K2 and K4 encode their TMA tensor maps on the host at
+every call).
 
 Each kernel's bound is the least time the card could take for the work:
 the larger of the bytes it must move (each input read once, each output
@@ -278,7 +282,8 @@ def phase_card(torch):
 
 def phase_attention(torch):
     from dinomc_tpu_torch.ops.hopper.attention import (
-        attention_bwd, attention_fwd, fused_mha, fused_mha_reference,
+        attention_bwd, attention_bwd_dkv, attention_bwd_dq, attention_fwd, fused_mha,
+        fused_mha_reference,
     )
 
     worst_fwd, worst_grad, worst_grad_rel, timing = 0.0, 0.0, 0.0, None
@@ -300,28 +305,42 @@ def phase_attention(torch):
         fwd_err = (out.float() - ref.float()).abs().max().item()
         grad_err = (g_k.float() - g_r.float()).abs().amax(dim=(0, 1, 3, 4))
         grad_rel = (grad_err / g_r.float().abs().amax(dim=(0, 1, 3, 4))).max().item()
+        # K2 is deterministic (no atomics): a second call on the same inputs
+        # gives the same bits
+        q, k, v = qkv.unbind(2)
+        o, lse = attention_fwd(q, k, v, scale, boundary)
+        first, again = (attention_bwd(q, k, v, o, lse, do, scale, boundary) for _ in range(2))
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
         print(f"[attention] {what}: B={B} N={N} h={h} d={d} boundary={boundary}  "
               f"fwd max|diff| {fwd_err:.3e}  dq/dk/dv max abs {grad_err.tolist()}  "
-              f"max rel {grad_rel:.3e}")
-        if not (fwd_err <= ATTN_FWD_ATOL and grad_rel <= ATTN_GRAD_RTOL):
+              f"max rel {grad_rel:.3e}  backward bit-identical on a repeat: {same}")
+        if not (fwd_err <= ATTN_FWD_ATOL and grad_rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"attention kernel disagrees with its plain version at {what}")
         worst_fwd = max(worst_fwd, fwd_err)
         worst_grad = max(worst_grad, grad_err.max().item())
         worst_grad_rel = max(worst_grad_rel, grad_rel)
 
         if i < 5:  # main-path shapes: time kernel against plain
-            q, k, v = qkv.unbind(2)
-            o, lse = attention_fwd(q, k, v, scale, boundary)
+            _, delta = attention_bwd_dq(q, k, v, o, lse, do, scale, boundary)
             t = {
                 "fwd_ms": _time_ms(torch, lambda: attention_fwd(q, k, v, scale, boundary)),
                 "fwd_plain_ms": _time_ms(torch, lambda: fused_mha_reference(q, k, v, scale, boundary)),
                 "bwd_ms": _time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do, scale, boundary)),
+                # K2's two launches apart: dQ (and delta), then dK/dV
+                "dq_ms": _time_ms(torch, lambda: attention_bwd_dq(
+                    q, k, v, o, lse, do, scale, boundary)),
+                "dkv_ms": _time_ms(torch, lambda: attention_bwd_dkv(
+                    q, k, v, lse, delta, do, scale, boundary)),
+                # with the host's cost of issuing (tensor maps encoded per call)
+                "host_bwd_ms": _host_ms(torch, lambda: attention_bwd(
+                    q, k, v, o, lse, do, scale, boundary)),
                 "bwd_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
                     ref, qkv_r, do, retain_graph=True)),
             }
             if timing is None:  # the first shape: the library's time and the bound too
                 lib = _sdpa_times(torch, *(x.transpose(1, 2).contiguous() for x in (q, k, v, do)))
-                t.update(fwd_library_ms=lib["fwd"], bwd_library_ms=lib["bwd"])
+                t.update(fwd_library_ms=lib["fwd"], bwd_library_ms=lib["bwd"],
+                         dq_library_ms=lib["dq"], dkv_library_ms=lib["dkv"])
                 elems, prod = B * N * h * d, B * h * N * N * d  # boundary 0: every key live
                 t["fwd_bound"] = _bound(4 * elems * 2 + B * h * N * 4, 4 * prod, BF16_FLOPS)
                 t["bwd_bound"] = _bound(8 * elems * 2 + B * h * N * 4, 10 * prod, BF16_FLOPS)
@@ -463,6 +482,8 @@ def phase_long_attention(torch):
             _, delta = hl.long_attention_dq(q, k, v, o, lse, dob, scale)
             timing = {
                 "fwd_ms": _time_ms(torch, lambda: hl.long_attention_fwd(q, k, v, scale)),
+                # with the host's cost of issuing (tensor maps encoded per call)
+                "host_fwd_ms": _host_ms(torch, lambda: hl.long_attention_fwd(q, k, v, scale)),
                 "fwd_plain_ms": _time_ms(torch, lambda: hl.long_mha_reference(q, k, v, scale)),
                 "dq_ms": _time_ms(torch, lambda: hl.long_attention_dq(q, k, v, o, lse, dob, scale)),
                 "dq_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(

@@ -10,32 +10,32 @@
 // packing: every key c < N is live for every query. The forward saves the
 // per-row log-sum-exp; the backward recomputes P from it.
 //
-// What bounds it on this card: per (batch, head) the forward does 6*N^2*d
-// flops (two score passes and one PV product) and the backward 14*N^2*d,
-// against about 8*N*d bytes of K/V per sweep. At N = 4097, d = 64 one
-// (batch, head)'s K and V are 2 x 524 KB, so they stay in the 50 MB L2
-// while its query tiles sweep them: the kernels are compute- and
-// latency-bound, not bandwidth-bound. The TPU kernel kept one (N, 128) K/V
-// feature block resident in VMEM and a whole 128 x N f32 score chunk beside
-// it; a 128 x 4224 f32 chunk is 2.2 MB, ten times the 227 KB of shared
-// memory a block may use.
+// What bounds it on this card: per (batch, head) the forward does 4*N^2*d
+// flops and the backward 14*N^2*d, against about 8*N*d bytes of K/V per
+// sweep. At N = 4097, d = 64 one (batch, head)'s K and V are 2 x 524 KB, so
+// they stay in the 50 MB L2 while its query tiles sweep them: the kernels
+// are compute- and latency-bound, not bandwidth-bound. The TPU kernel kept
+// one (N, 128) K/V feature block resident in VMEM and a whole 128 x N f32
+// score chunk beside it; a 128 x 4224 f32 chunk is 2.2 MB, ten times the
+// 227 KB of shared memory a block may use.
 //
-// Design: a forward block owns 128 query rows (8 warps x 16) and streams K
-// (and V) through shared memory in 64-key tiles. It computes the exact
-// softmax of the TPU kernel in two passes instead of an online rescale:
-// pass 1 finds each row's max and normalizer over all keys (Q K^T only),
-// pass 2 forms the normalized P, rounds it to bf16 as the plain version
-// does, and accumulates P V in WMMA accumulator fragments that never leave
-// registers. The grid's fastest axis is the query tile, so all query tiles
-// of one (batch, head) run next to each other and share its K/V in L2, the
-// card's analogue of the TPU kernel's resident K/V block. The backward is
-// deterministic, with no atomics: the dQ kernel owns 128 query rows, first
-// computes delta = rowsum(dO * O) for them (saved for K6), then loops over
-// key tiles; the dK/dV kernel owns 128 keys and sweeps every 64-row query
-// tile with f32 accumulators. Rows at or past N load as zeros; keys past N
-// are masked out of the softmax and padded query rows out of dK/dV. Every
-// product is a WMMA bf16 16x16x16 fragment with f32 accumulation; wgmma,
-// TMA and pipelining are later work.
+// K4 is built for Hopper (hopper_attn.cuh): one pass with an online
+// softmax. A block owns 64 query rows in one consumer warpgroup (two
+// blocks an SM); a producer warp streams 128-key K and V tiles by TMA
+// through a ring of stages; S = Q K^T is a wgmma product from shared
+// memory whose accumulator the softmax reads in registers, and P, rounded
+// to bf16 unnormalized, is the register A operand of O += P V. The grid's fastest axis is the query
+// tile, so all query tiles of one (batch, head) run next to each other and
+// share its K/V in L2, the card's analogue of the TPU kernel's resident K/V
+// block.
+//
+// K5/K6 are deterministic, with no atomics: the dQ kernel owns 128 query
+// rows, first computes delta = rowsum(dO * O) for them (saved for K6), then
+// loops over key tiles; the dK/dV kernel owns 128 keys and sweeps every
+// 64-row query tile with f32 accumulators. Rows at or past N load as zeros;
+// keys past N are masked out of the softmax and padded query rows out of
+// dK/dV. Their products are WMMA bf16 16x16x16 fragments with f32
+// accumulation, staged through shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -43,13 +43,15 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_attn.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int QT = 128;      // query rows per forward / dQ block
-constexpr int KT = 64;       // keys per streamed tile (forward, dQ)
+constexpr int QT = 128;      // query rows per dQ block
+constexpr int KT = 64;       // keys per streamed tile (dQ)
 constexpr int DKV_K = 128;   // keys per dK/dV block
 constexpr int DKV_Q = 64;    // query rows per streamed tile (dK/dV)
 constexpr int NWARPS = 8;    // each warp owns 16 rows of its block's tile
@@ -136,94 +138,166 @@ __device__ __forceinline__ void store_rows(bf16* out_base, const FragC* acc, flo
 }
 
 // ----------------------------------------------------------------------------
-// K4: forward
+// K4: forward (wgmma + TMA)
 // ----------------------------------------------------------------------------
 
+// One consumer warpgroup a block, two blocks an SM, two stages: measured
+// faster than two warpgroups or three stages (scripts/attention_variants.py;
+// PERF.md).
+constexpr int FWD_WGS = 1;                      // consumer warpgroups a block, 64 query rows each
+constexpr int FWD_ROWS = 64 * FWD_WGS;          // query rows a block
+constexpr int FWD_KEYS = 128;                   // keys a streamed K/V tile
+constexpr int FWD_STAGES = 2;                   // K/V tiles in flight
+constexpr int FWD_THREADS = 128 * FWD_WGS + 32; // + 1 producer warp
+
+template <int D> struct FwdSmem {
+  bf16 q[FWD_ROWS * D];                     // Q; each warpgroup's half stages its O at the end
+  bf16 k[FWD_STAGES][FWD_KEYS * D];
+  bf16 v[FWD_STAGES][FWD_KEYS * D];
+  uint64_t full[FWD_STAGES], empty[FWD_STAGES], q_full;
+};
+
+// One pass with an online softmax. The producer warp loads the block's Q
+// once and then K/V tiles into a ring of FWD_STAGES stages; each consumer
+// warpgroup owns 64 query rows and, per tile, computes S = Q K^T (wgmma,
+// both from shared memory) into registers, masks keys past N, updates its
+// running max and sum, rescales O, and adds P V (P in registers as the A
+// operand, V read MN-major). O is divided by the sum at the end, staged in
+// shared memory and written by a TMA store that clips rows past N.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-long_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o,
-                float* __restrict__ lse, int N, int H, long long sb,
-                long long sn, long long sh, float scale_log2) {
-  constexpr int LDT = Pitch<D>::T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + QT * LDT;
-  bf16* Vs = Ks + KT * LDT;
-  float* Ss = reinterpret_cast<float*>(Vs + KT * LDT);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + QT * LDS);
-
-  const int h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(FWD_THREADS, 2 / FWD_WGS)
+long_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse, int N,
+                int H, float scale_log2) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>(smem_raw);
+  constexpr uint32_t BOX = BOX_ROWS * D * 2;  // bytes of one 64-row box
+  const int r0 = blockIdx.x * FWD_ROWS, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = blockIdx.x * QT;
-  const long long base = (long long)b * sb + (long long)h * sh;
-  float* Sw = Ss + warp * 16 * LDS;
-  bf16* Pw = Ps + warp * 16 * LDP;
+  const int ntiles = (N + FWD_KEYS - 1) / FWD_KEYS;
 
-  load_rows<D, QT>(Qs, LDT, q + base, sn, r0, N);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * FWD_WGS);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.q_full, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  FragA qf[D / 16];
-#pragma unroll
-  for (int kt = 0; kt < D / 16; ++kt)
-    wmma::load_matrix_sync(qf[kt], Qs + warp * 16 * LDT + kt * 16, LDT);
 
-  // Two lanes per query row; lane parity picks the even or odd columns.
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int grow = r0 + row;
-
-  // Pass 1: each row's max and normalizer over all N keys (log2 units).
-  // Every tile holds key c0 < N, so m is finite after the first tile.
-  float m_i = -INFINITY, l_i = 0.f;
-  for (int c0 = 0; c0 < N; c0 += KT) {
-    __syncthreads();
-    load_rows<D, KT>(Ks, LDT, k + base, sn, c0, N);
-    __syncthreads();
-    scores<D>(Sw, qf, Ks, LDT);
-    __syncwarp();
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half;
-      sv[j] = (c0 + c < N) ? Sw[(row % 16) * LDS + c] * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, sv[j]);
+  if (warp == 4 * FWD_WGS) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&sm.q_full, FWD_WGS * BOX);
+      for (int g = 0; g < FWD_WGS; ++g)
+        tma_load(sm.q + g * BOX_ROWS * D, &q_map, &sm.q_full, h, r0 + g * BOX_ROWS, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % FWD_STAGES;
+        mbar_wait(&sm.empty[s], ((t / FWD_STAGES) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 4 * BOX);
+        const int c0 = t * FWD_KEYS;
+        tma_load(sm.k[s], &k_map, &sm.full[s], h, c0, b);
+        tma_load(sm.k[s] + BOX_ROWS * D, &k_map, &sm.full[s], h, c0 + BOX_ROWS, b);
+        tma_load(sm.v[s], &v_map, &sm.full[s], h, c0, b);
+        tma_load(sm.v[s] + BOX_ROWS * D, &v_map, &sm.full[s], h, c0 + BOX_ROWS, b);
+      }
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) psum += exp2f(sv[j] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * exp2f(m_i - m_new) + psum;
-    m_i = m_new;
-  }
-  const float inv_l = 1.f / l_i;
-
-  // Pass 2: normalized P, rounded to bf16, times V.
-  FragC acc[D / 16];
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt) wmma::fill_fragment(acc[dt], 0.f);
-  for (int c0 = 0; c0 < N; c0 += KT) {
-    __syncthreads();
-    load_rows<D, KT>(Ks, LDT, k + base, sn, c0, N);
-    load_rows<D, KT>(Vs, LDT, v + base, sn, c0, N);
-    __syncthreads();
-    scores<D>(Sw, qf, Ks, LDT);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half;
-      const float p = (c0 + c < N)
-          ? exp2f(Sw[(row % 16) * LDS + c] * scale_log2 - m_i) * inv_l : 0.f;
-      Pw[(row % 16) * LDP + c] = __float2bfloat16(p);
-    }
-    __syncwarp();
-    accumulate<D>(acc, Pw, Vs, LDT);
+    return;
   }
 
-  store_rows<D>(o + ((long long)b * N * H + h) * D, acc, Sw, row, half, grow, N, H);
-  if (grow < N && half == 0)
-    lse[((long long)b * H + h) * N + grow] = (m_i + log2f(l_i)) * LN2;
+  // consumers
+  const int wg = warp / 4, wl = warp % 4;
+  bf16* q_tile = sm.q + wg * BOX_ROWS * D;
+  const uint64_t q_desc = make_desc<D>(q_tile);
+  float o[D / 2];
+  zero(o);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows r, r + 8 (log2 units)
+  mbar_wait(&sm.q_full, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % FWD_STAGES;
+    mbar_wait(&sm.full[s], (t / FWD_STAGES) & 1);
+    const uint64_t k_desc = make_desc<D>(sm.k[s]), v_desc = make_desc<D>(sm.v[s]);
+
+    float sc[FWD_KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    const int c0 = t * FWD_KEYS;
+    if (c0 + FWD_KEYS > N) {  // the ragged last tile: keys past N drop out
+#pragma unroll
+      for (int i = 0; i < FWD_KEYS / 2; ++i)
+        if (c0 + acc_col(lane, i) >= N) sc[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      // every tile holds key c0 < N, so the max is finite
+      const float m_new = fmaxf(m[rr], mx[rr] * scale_log2);
+      alpha[rr] = exp2f(m[rr] - m_new);
+      m[rr] = m_new;
+      l[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int i = 0; i < FWD_KEYS / 2; ++i) {
+      const int rr = (i / 2) % 2;
+      sc[i] = exp2f(fmaf(sc[i], scale_log2, -m[rr]));
+      l[rr] += sc[i];  // this thread's share of the row sum; summed over the quad at the end
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    uint32_t pa[FWD_KEYS / 16][4];  // P, bf16, as the A operand of each 16-key slice
+#pragma unroll
+    for (int kk = 0; kk < FWD_KEYS / 16; ++kk) to_a_operand(pa[kk], sc, kk);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], v_desc + (uint64_t)((kk * 16 * Swizzle<D>::ROW) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    inv[rr] = 1.f / l[rr];  // a live row attends to at least one key, so l > 0
+  }
+  named_sync(1 + wg, 128);  // the warpgroup is done reading its Q rows
+  stage_rows<D>(reinterpret_cast<unsigned char*>(q_tile), o, wl, lane, inv[0], inv[1]);
+  fence_async_smem();
+  named_sync(1 + wg, 128);
+  const int row0 = r0 + wg * BOX_ROWS;
+  if (wl == 0 && lane == 0) {
+    tma_store(&o_map, q_tile, h, row0, b);
+    tma_store_wait();
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + acc_row(wl, lane, 2 * rr);
+      if (row < N) lse[((long long)b * H + h) * N + row] = (m[rr] + log2f(l[rr])) * LN2;
+    }
+  }
 }
 
 // ----------------------------------------------------------------------------
@@ -392,9 +466,6 @@ long_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows<D>(dv + dbase, dvf, dPw, krow, half, gk, N, H);
 }
 
-template <int D> constexpr size_t fwd_smem() {
-  return (size_t)(QT + 2 * KT) * Pitch<D>::T * 2 + (size_t)QT * LDS * 4 + (size_t)QT * LDP * 2;
-}
 template <int D> constexpr size_t dq_smem() {
   return (size_t)(2 * QT + 2 * KT) * Pitch<D>::T * 2 + (size_t)2 * QT * LDS * 4 +
          (size_t)QT * LDP * 2;
@@ -410,16 +481,26 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 }
 
 template <int D>
-cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                       int B, int N, int H, long long sb, long long sn, long long sh,
-                       float scale, cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
-  cudaError_t err = set_smem(long_fwd_kernel<D>, smem);
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+               int B, int N, int H, long long sb, long long sn, long long sh,
+               float scale, cudaStream_t stream, int device) {
+  const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
+  if (bound != cudaSuccess) return bound;
+  CUtensorMap q_map, k_map, v_map, o_map;
+  CUresult res = CUDA_SUCCESS;
+  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&q_map, q, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&k_map, k, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&v_map, v, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&o_map, o, B, N, H);
+  if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
+  const size_t smem = sizeof(FwdSmem<D>) + 1024;
+  static bool smem_set = false;
+  cudaError_t err = hopper::allow_smem(long_fwd_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
   // query tiles fastest: one (batch, head)'s tiles run together and share its K/V in L2
-  dim3 grid((N + QT - 1) / QT, H, B);
-  long_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, lse, N, H, sb, sn, sh,
-                                                       scale * LOG2E);
+  dim3 grid((N + FWD_ROWS - 1) / FWD_ROWS, H, B);
+  long_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(q_map, k_map, v_map, o_map, lse, N, H,
+                                                          scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -454,16 +535,18 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* 
 }  // namespace
 
 // q, k, v: (B, N, H, D) bf16 sharing strides (sb, sn, sh) with unit stride
-// in D; o: contiguous (B, N, H, D) bf16; lse: (B, H, N) f32.
+// in D; o: contiguous (B, N, H, D) bf16; lse: (B, H, N) f32; `device`: the
+// CUDA device of the tensors and the stream.
 extern "C" int dinomc_long_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, int B, int N, int H, int D, long long sb,
-                                    long long sn, long long sh, float scale, void* stream) {
+                                    long long sn, long long sh, float scale, void* stream,
+                                    int device) {
   const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_fwd<16>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st);
-    case 32: return launch_fwd<32>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st);
-    case 64: return launch_fwd<64>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st);
+    case 16: return launch_fwd<16>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st, device);
+    case 32: return launch_fwd<32>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st, device);
+    case 64: return launch_fwd<64>(qp, kp, vp, (bf16*)o, (float*)lse, B, N, H, sb, sn, sh, scale, st, device);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,361 @@
+// Device code shared by the Hopper attention kernels: the long-sequence
+// forward K4 (attention_long.cu) and the short-sequence backward K2
+// (attention.cu).
+//
+// - TMA: a tensor map per (B, N, h, d) bf16 tensor, encoded on the host per
+//   call and passed to the kernel as a __grid_constant__ parameter; loads of
+//   64-row boxes into shared memory (rows past N arrive as zeros) and stores
+//   that clip rows past N.
+// - An mbarrier ring: "full" barriers that complete when a stage's bytes
+//   have landed, "empty" barriers that the consumer warps arrive on when
+//   they are done with a stage.
+// - wgmma: shared-memory descriptors, fences, commit/wait, and the m64nNk16
+//   bf16 -> f32 instructions with both operands in shared memory (the
+//   score-like products, K-major) or A in registers and B MN-major (the
+//   products that accumulate over keys or queries).
+// - The accumulator layout: thread t of warp w in a warpgroup holds, for
+//   each 8-column slice j, rows 16w + t/4 (+8) and columns 8j + 2(t%4)
+//   (+1), registers 4j + {0, 1} (row) and 4j + {2, 3} (row + 8). Two
+//   adjacent slices, rounded to bf16 and packed, are exactly the register
+//   A operand of the next product's 16-deep k-slice, so scores never go
+//   through shared memory.
+//
+// Every tile is d bf16 values a row, so a row is 2d bytes (128, 64 or 32)
+// and the swizzle is that width: TMA writes it, the wgmma descriptors read
+// it, and the epilogue writes it by hand (swz below); tiles start on 1024
+// bytes so the pattern is the same whatever the tile's address.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+template <int D> struct Swizzle {
+  static_assert(D == 16 || D == 32 || D == 64, "head dim 16, 32 or 64");
+  static constexpr int ROW = 2 * D;  // bytes per tile row
+  static constexpr int BITS = D == 64 ? 3 : D == 32 ? 2 : 1;
+  static constexpr uint64_t LAYOUT = D == 64 ? 1 : D == 32 ? 2 : 3;  // wgmma: 128B, 64B, 32B
+  static constexpr CUtensorMapSwizzle TMA =
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  static constexpr uint32_t SBO = 8 * ROW;  // bytes between 8-row groups
+};
+
+constexpr int BOX_ROWS = 64;  // rows of every TMA box
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps. cuTensorMapEncodeTiled is a driver function; it is
+// fetched through the runtime so the library links as before (no -lcuda).
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// What a launcher returns when a tensor map cannot be encoded: this plus
+// the driver's CUresult (CUDA_ERROR_NOT_FOUND when the driver has no
+// cuTensorMapEncodeTiled). Any other nonzero return is a cudaError_t.
+constexpr int MAP_ERROR = 10000;
+
+// Map of a (B, N, H, D) bf16 tensor with element strides (sb, sn, sh) and
+// unit stride in D, in 64-row boxes of one (batch, head). Dimensions run
+// D, H, N, B (innermost first) so the strides grow for both the qkv views
+// and contiguous tensors. Out-of-bounds rows load as zeros. Encoding needs
+// a current context: a launcher first makes its device's current
+// (cudaSetDevice), as a thread that has made no runtime call of this
+// library's own yet (autograd's worker, running a backward) may have none.
+template <int D>
+inline CUresult make_map(CUtensorMap* map, const void* base, int B, int N, int H, long long sb,
+                         long long sn, long long sh) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)BOX_ROWS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, Swizzle<D>::TMA,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// A contiguous (B, N, H, D) tensor.
+template <int D>
+inline CUresult make_map(CUtensorMap* map, const void* base, int B, int N, int H) {
+  return make_map<D>(map, base, B, N, H, (long long)N * H * D, (long long)H * D, D);
+}
+
+// Raise a kernel's dynamic shared memory limit, once per kernel.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// Device: shared memory, TMA and the mbarrier ring.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The dynamic shared memory, moved up to the next 1024-byte boundary (the
+// launch asks for 1024 bytes more than the layout needs).
+template <typename T>
+__device__ __forceinline__ T& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (smem_addr(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<T*>(raw + pad);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// After every mbar_init, before any thread uses a barrier.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-row box of (batch b, head h) starting at row `row` into `dst`;
+// completes `bytes` on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                         int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// Store a 64-row box from shared memory; rows past N are clipped. The
+// caller fences (fence_async_smem) and syncs the writers first.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int h, int row,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// Wait until this thread's TMA stores have completed.
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Make this thread's shared-memory writes visible to TMA and wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Barrier `id` (1-15) over `threads` threads, e.g. one warpgroup.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of byte `off` of a tile written with D's swizzle.
+template <int D>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & ((1u << Swizzle<D>::BITS) - 1u)) << 4);
+}
+
+// ---------------------------------------------------------------------------
+// Device: wgmma.
+// ---------------------------------------------------------------------------
+
+// Descriptor of a tile of 2D-byte rows in shared memory, swizzled as TMA
+// wrote it. The same descriptor serves a K-major operand (rows are M or N,
+// D contiguous) and an MN-major one (rows are K, with the transpose flag);
+// advance it by (byte offset >> 4): 32 bytes a k-slice along D, 16 rows a
+// k-slice along rows.
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(const void* tile) {
+  uint64_t desc = (uint64_t)((smem_addr(tile) & 0x3FFFFu) >> 4);
+  desc |= (uint64_t)1 << 16;                          // leading offset: unused here
+  desc |= (uint64_t)(Swizzle<D>::SBO >> 4) << 32;     // 8-row group stride
+  desc |= Swizzle<D>::LAYOUT << 62;
+  return desc;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Pin accumulator registers at this point of the program: the compiler may
+// not move their reads or writes across it (wgmma writes them
+// asynchronously, between the issue and the wait).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem) * B (16 x 64, smem); both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 128, f32) (+)= A (64 x 16, smem) * B (16 x 128, smem); both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 16, f32) += A (64 x 16, registers) * B (16 x 16, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 32, f32) += A (64 x 16, registers) * B (16 x 32, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// d (64 x D) += A (64 x 16, registers) * B (16 x D, smem, MN-major).
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// Two bf16 values in one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The register A operand of k-slice kk (columns 16kk..16kk+15) of an
+// accumulator, rounded to bf16.
+template <int R>
+__device__ __forceinline__ void to_a_operand(uint32_t (&a)[4], const float (&c)[R], int kk) {
+  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// Row (0..63) of register i of a warpgroup's accumulator, and its column.
+__device__ __forceinline__ int acc_row(int warp_in_group, int lane, int i) {
+  return 16 * warp_in_group + lane / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int lane, int i) {
+  return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+}
+
+// Write a warpgroup's 64 x D f32 accumulator as bf16 rows of a 64-row tile
+// with D's swizzle, this thread's rows r and r + 8 scaled by s0 and s1.
+template <int D>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&c)[D / 2],
+                                           int warp_in_group, int lane, float s0, float s1) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = acc_row(warp_in_group, lane, i), col = acc_col(lane, i);
+    const float s = (i / 2) % 2 ? s1 : s0;
+    *reinterpret_cast<uint32_t*>(tile + swz<D>(row * Swizzle<D>::ROW + col * 2)) =
+        pack_bf16(c[i] * s, c[i + 1] * s);
+  }
+}
+
+}  // namespace hopper

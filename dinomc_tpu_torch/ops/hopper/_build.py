@@ -38,9 +38,10 @@ LAUNCHES: Counter = Counter()
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "dinomc_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
-    "dinomc_attn_bwd": [_P] * 10 + [_I] * 4 + [_L] * 3 + [_F, _I, _P],
+    "dinomc_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _I, _P, _I],
+    "dinomc_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _I, _P, _I],
     "dinomc_photometric": [_P] * 4 + [_I] * 2 + [_F] * 6 + [_P],
-    "dinomc_long_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _P],
+    "dinomc_long_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _P, _I],
     "dinomc_long_attn_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
     "dinomc_long_attn_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P],
     "dinomc_win_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 4 + [_F, _P],
@@ -137,8 +138,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# A C entry point returns this plus the driver's CUresult when it could not
+# encode a TMA tensor map (csrc/hopper_attn.cuh, MAP_ERROR).
+MAP_ERROR = 10000
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launches."""
+    if err >= MAP_ERROR:
+        raise RuntimeError(f"{what}: encoding a TMA tensor map failed, CUresult {err - MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -90,21 +90,58 @@ def attention_fwd(q, k, v, scale: float, boundary: int):
     return o, lse
 
 
-def attention_bwd(q, k, v, o, lse, do, scale: float, boundary: int):
-    """K2: returns (dq, dk, dv), each (B, N, h, d) bf16 contiguous."""
-    q, k, v, (sb, sn, sh) = _kernel_args(q, k, v)
-    B, N, H, D = q.shape
+def _bwd_inputs(q, k, v, do):
+    """K2's inputs: (q, k, v, strides, do) as ``_kernel_args`` returns them,
+    with ``do`` a contiguous bf16 tensor on a 16-byte boundary (its TMA map
+    needs one)."""
+    q, k, v, strides = _kernel_args(q, k, v)
     do = do.to(torch.bfloat16).contiguous()
+    if do.data_ptr() % 16:
+        do = do.clone()
+    return q, k, v, strides, do
+
+
+def _launch_dq(q, k, v, strides, do, o, lse, scale, boundary):
+    B, N, H, D = q.shape
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device) for _ in range(3))
-    lib = _build.library()
-    err = lib.dinomc_attn_bwd(
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    err = _build.library().dinomc_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, N, H, D, sb, sn, sh, float(scale), int(boundary),
-        _build.stream_handle(q),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, N, H, D, *strides,
+        float(scale), int(boundary), _build.stream_handle(q), q.device.index,
     )
-    _build.check(err, "attention backward")
+    _build.check(err, "attention backward, dQ")
+    return dq, delta
+
+
+def _launch_dkv(q, k, v, strides, do, lse, delta, scale, boundary):
+    B, N, H, D = q.shape
+    dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device) for _ in range(2))
+    err = _build.library().dinomc_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, D, *strides,
+        float(scale), int(boundary), _build.stream_handle(q), q.device.index,
+    )
+    _build.check(err, "attention backward, dK/dV")
+    return dk, dv
+
+
+def attention_bwd_dq(q, k, v, o, lse, do, scale: float, boundary: int):
+    """K2's first launch alone: returns (dq, delta (B, h, N) f32)."""
+    return _launch_dq(*_bwd_inputs(q, k, v, do), o, lse, scale, boundary)
+
+
+def attention_bwd_dkv(q, k, v, lse, delta, do, scale: float, boundary: int):
+    """K2's second launch alone: returns (dk, dv); reads the first's delta."""
+    return _launch_dkv(*_bwd_inputs(q, k, v, do), lse, delta, scale, boundary)
+
+
+def attention_bwd(q, k, v, o, lse, do, scale: float, boundary: int):
+    """K2, its two launches (dQ and delta, then dK/dV): returns (dq, dk,
+    dv), each (B, N, h, d) bf16 contiguous."""
+    args = _bwd_inputs(q, k, v, do)
+    dq, delta = _launch_dq(*args, o, lse, scale, boundary)
+    dk, dv = _launch_dkv(*args, lse, delta, scale, boundary)
     _build.LAUNCHES["attention_bwd"] += 1
     return dq, dk, dv
 

@@ -45,7 +45,7 @@ def long_attention_fwd(q, k, v, scale: float):
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     err = _build.library().dinomc_long_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B, N, H, D, sb, sn, sh, float(scale), _build.stream_handle(q),
+        B, N, H, D, sb, sn, sh, float(scale), _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "long attention forward")
     _build.LAUNCHES["long_attention_fwd"] += 1

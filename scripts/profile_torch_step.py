@@ -59,9 +59,10 @@ from dinomc_tpu_torch.ops.hopper import _build  # noqa: E402
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
 # hand-written kernels, by the prefix of their CUDA function names
-KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_", "long_fwd_kernel", "long_dq_kernel",
-                "long_dkv_kernel", "mean_gray_kernel", "photometric_kernel", "win_fwd_kernel",
-                "win_bwd_kernel", "win_dbias_reduce_kernel", "wins_fwd_kernel", "wins_bwd_kernel",
+KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
+                "long_fwd_kernel", "long_dq_kernel", "long_dkv_kernel", "mean_gray_kernel",
+                "photometric_kernel", "win_fwd_kernel", "win_bwd_kernel",
+                "win_dbias_reduce_kernel", "wins_fwd_kernel", "wins_bwd_kernel",
                 "wins_dbias_reduce_kernel", "fused_mlp_kernel")
 
 

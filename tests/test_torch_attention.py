@@ -119,20 +119,51 @@ def test_rows_sum_to_one():
     np.testing.assert_allclose(n(out), 1.0, atol=1e-6)
 
 
+def _card_qkv(device, N, d, B=2, h=4):
+    """(qkv (B, N, 3, h, d) bf16, do) on the card from a seed."""
+    gen = torch.Generator(device=device).manual_seed(N + d)
+    qkv = torch.randn(B, N, 3, h, d, generator=gen, device=device).bfloat16()
+    do = torch.randn(B, N, h, d, generator=gen, device=device).bfloat16()
+    return qkv, do
+
+
+def _split(qkv, layout):
+    """q, k, v: the strided views of qkv, or a contiguous copy of each."""
+    q, k, v = qkv.unbind(2)
+    return (q, k, v) if layout == "strided" else (q.contiguous(), k.contiguous(), v.contiguous())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,boundary,d", [(785, 0, 64), (631, 530, 64), (70, 33, 32), (50, 0, 16)])
-def test_kernels_match_plain_on_card(cuda_device, N, boundary, d):
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("N,boundary,d", [
+    (785, 0, 64), (631, 530, 64), (70, 33, 32), (50, 0, 16),
+    (256, 128, 64), (256, 128, 16),  # the crop boundary on a tile edge
+])
+def test_kernels_match_plain_on_card(cuda_device, N, boundary, d, layout):
     """K1/K2 against the plain version in bf16 (bounds as chip_smoke.py)."""
-    gen = torch.Generator(device=cuda_device).manual_seed(N)
-    qkv = torch.randn(2, N, 3, 4, d, generator=gen, device=cuda_device).bfloat16()
-    do = torch.randn(2, N, 4, d, generator=gen, device=cuda_device).bfloat16()
+    qkv, do = _card_qkv(cuda_device, N, d)
     s = 1.0 / math.sqrt(d)
     outs, grads = [], []
     for fn in (hatt.fused_mha, hatt.fused_mha_reference):
         x = qkv.clone().requires_grad_()
-        o = fn(*x.unbind(2), s, boundary)
+        o = fn(*_split(x, layout), s, boundary)
         outs.append(o.float())
         grads.append(torch.autograd.grad(o, x, do)[0].float())
     torch.cuda.synchronize()
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-2
     assert ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,boundary,d", [(785, 0, 64), (631, 530, 64), (256, 128, 32),
+                                          (50, 0, 16)])
+def test_backward_kernel_is_deterministic(cuda_device, N, boundary, d):
+    """K2 has no atomics: two calls on the same inputs give the same bits."""
+    qkv, do = _card_qkv(cuda_device, N, d)
+    q, k, v = _split(qkv, "strided")
+    s = 1.0 / math.sqrt(d)
+    o, lse = hatt.attention_fwd(q, k, v, s, boundary)
+    first = hatt.attention_bwd(q, k, v, o, lse, do, s, boundary)
+    again = hatt.attention_bwd(q, k, v, o, lse, do, s, boundary)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

@@ -108,10 +108,18 @@ def test_rows_sum_to_one():
     np.testing.assert_allclose(n(out), 1.0, atol=1e-6)
 
 
+def _split(qkv, layout):
+    """q, k, v: the strided views of qkv, or a contiguous copy of each."""
+    q, k, v = qkv.unbind(2)
+    return (q, k, v) if layout == "strided" else (q.contiguous(), k.contiguous(), v.contiguous())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
 @pytest.mark.parametrize("B,N,h,d", [(2, 4097, 6, 64), (1, 1100, 2, 32), (1, 1030, 4, 16)])
-def test_kernels_match_plain_on_card(cuda_device, B, N, h, d):
-    """K4-K6 against the plain version in bf16 (bounds as chip_smoke.py)."""
+def test_kernels_match_plain_on_card(cuda_device, B, N, h, d, layout):
+    """K4-K6 against the plain version in bf16 (bounds as chip_smoke.py); K5
+    and K6 read K4's log-sum-exp."""
     gen = torch.Generator(device=cuda_device).manual_seed(N)
     qkv = torch.randn(B, N, 3, h, d, generator=gen, device=cuda_device).bfloat16()
     do = torch.randn(B, N, h, d, generator=gen, device=cuda_device).bfloat16()
@@ -119,9 +127,31 @@ def test_kernels_match_plain_on_card(cuda_device, B, N, h, d):
     outs, grads = [], []
     for fn in (hlong.long_mha, hlong.long_mha_reference):
         x = qkv.clone().requires_grad_()
-        o = fn(*x.unbind(2), s)
+        o = fn(*_split(x, layout), s)
         outs.append(o.float())
         grads.append(torch.autograd.grad(o, x, do)[0].float())
     torch.cuda.synchronize()
     assert (outs[0] - outs[1]).abs().max().item() <= 1e-2
     assert ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 1025, 4097])
+def test_forward_kernel_at_tile_edges(cuda_device, N, d, layout):
+    """K4 at lengths on and beside its 64-row TMA boxes and 128-key tiles,
+    at each head dim (each its own swizzle): the output within 1e-2 of the
+    plain version, and the saved log-sum-exp that of the plain f32 scores
+    within 1e-4 (f32 sums in another order; it is about ln N)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(N + d)
+    qkv = torch.randn(2, N, 3, 3, d, generator=gen, device=cuda_device).bfloat16()
+    q, k, v = _split(qkv, layout)
+    s = 1.0 / math.sqrt(d)
+    o, lse = hlong.long_attention_fwd(q, k, v, s)
+    ref = hlong.long_mha_reference(q, k, v, s)
+    ref_lse = torch.logsumexp(torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * s, dim=-1)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and lse.shape == (2, 3, N)
+    assert (o.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
