@@ -9,8 +9,9 @@ script exits non-zero:
    (``nvcc`` from ``dinomc_tpu_torch/csrc``, timed);
 2. attention K1 (forward) and K2 (backward) against their plain version
    on the card, in bf16, at the main path's shapes and a few small ones;
-   K2's gradients bit-identical on a repeated call; K2 timed whole and as
-   its two launches (dQ, dK/dV) beside SDPA's dq and dk/dv;
+   K2's gradients bit-identical on a repeated call; K1 and K2 timed with
+   and without the host's cost, K2 also as its two launches (dQ, dK/dV)
+   beside SDPA's dq and dk/dv;
 3. photometric K3 against its plain version at 224 and 84 px, with rows
    that cover every branch;
 4. the real entry point, ``dinomc_tpu_torch.cli.train_dino.train_dino``,
@@ -19,7 +20,8 @@ script exits non-zero:
 5. long-sequence attention K4 (forward), K5 (dQ) and K6 (dK/dV) against
    their plain version on the card, in bf16, at the segmentation path's
    shapes (4097 tokens at 512 px, patch 8), past the TPU kernel's 5120 cap,
-   and a few ragged small ones; K4 timed with and without the host's cost;
+   and a few ragged small ones; K6's gradients bit-identical on a repeated
+   call; K4 timed with and without the host's cost;
 6. the segmentation entry point, ``dinomc_tpu_torch.cli.train_seg.train_seg``,
    twice at the published widths (ViT-S/8 UPerNet, 512 px, batch 4, 8 UAVid
    classes, synthetic data, weights from a seed): decoder-only and with the
@@ -66,8 +68,8 @@ script checks that the card was still spinning when the last call was
 queued, and fails if it never was. A ``host_`` time is CUDA
 events around 10 calls issued back to back with no spin kernel, so it also
 holds the host's cost of issuing them where that exceeds the device's
-(phases 2, 5 and 7; K2 and K4 encode their TMA tensor maps on the host at
-every call).
+(phases 2, 5 and 7; K1, K2, K4 and K6 encode their TMA tensor maps on the
+host at every call).
 
 Each kernel's bound is the least time the card could take for the work:
 the larger of the bytes it must move (each input read once, each output
@@ -325,6 +327,8 @@ def phase_attention(torch):
             t = {
                 "fwd_ms": _time_ms(torch, lambda: attention_fwd(q, k, v, scale, boundary)),
                 "fwd_plain_ms": _time_ms(torch, lambda: fused_mha_reference(q, k, v, scale, boundary)),
+                # with the host's cost of issuing (tensor maps encoded per call)
+                "host_fwd_ms": _host_ms(torch, lambda: attention_fwd(q, k, v, scale, boundary)),
                 "bwd_ms": _time_ms(torch, lambda: attention_bwd(q, k, v, o, lse, do, scale, boundary)),
                 # K2's two launches apart: dQ (and delta), then dK/dV
                 "dq_ms": _time_ms(torch, lambda: attention_bwd_dq(
@@ -470,16 +474,20 @@ def phase_long_attention(torch):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip((dq, dk, dv), g_r)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_r))
+        # K6 is deterministic (no atomics): a second call gives the same bits
+        _, delta = hl.long_attention_dq(q, k, v, o, lse, do, scale)
+        same = all(torch.equal(a, b) for a, b in zip(
+            (dk, dv), hl.long_attention_dkv(q, k, v, lse, delta, do, scale)))
         print(f"[long attention] {what}: B={B} N={N} h={h} d={d}  fwd max|diff| "
-              f"{fwd_err:.3e}  dq/dk/dv max abs {errs}  max rel {rel:.3e}")
-        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+              f"{fwd_err:.3e}  dq/dk/dv max abs {errs}  max rel {rel:.3e}  dK/dV "
+              f"bit-identical on a repeat: {same}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"long attention kernels disagree with their plain version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "dq": max(worst["dq"], errs[0]),
                  "dkv": max(worst["dkv"], errs[1], errs[2]), "rel": max(worst["rel"], rel)}
 
         if i == 0:  # the main path's shape: each kernel against its plain version
             dob = do.contiguous()
-            _, delta = hl.long_attention_dq(q, k, v, o, lse, dob, scale)
             timing = {
                 "fwd_ms": _time_ms(torch, lambda: hl.long_attention_fwd(q, k, v, scale)),
                 # with the host's cost of issuing (tensor maps encoded per call)

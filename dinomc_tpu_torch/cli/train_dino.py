@@ -206,7 +206,7 @@ def train_dino(args) -> TrainSummary:
     import torch
 
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
-    from dinomc_tpu_torch.cli.common import set_seed
+    from dinomc_tpu_torch.cli.common import StepLog, set_seed
     from dinomc_tpu_torch.data.loader import PrefetchLoader, ShardedSampler
     from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
     from dinomc_tpu_torch.train.dino_trainer import dino_train_step, init_dino_train_state
@@ -239,8 +239,8 @@ def train_dino(args) -> TrainSummary:
 
     logger = JsonlLogger(f"{args.output_dir}/log.txt")
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    losses, events = [], []
-    timed = device.type == "cuda"
+    steps = StepLog(timed=device.type == "cuda")
+    last_loss = float("nan")  # the last print step's, carried across epochs
     done = False
     for epoch in range(start_epoch, args.epochs):
         sampler.set_epoch(epoch)
@@ -250,40 +250,30 @@ def train_dino(args) -> TrainSummary:
         for it, batch in enumerate(
             metric_logger.log_every(loader, args.print_freq, f"Epoch [{epoch}]")
         ):
-            if timed:
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
+            start = steps.begin()
             B, H, W = batch.shape[:3]
             draws = draw_multicrop(aug_gen, B, H, W, mc_cfg, device=device)
             g, locals_ = multicrop_augment(batch, draws, mc_cfg)
             metrics = dino_train_step(state, g, locals_, sch, cfg)
-            losses.append(metrics["loss"])
-            if timed:
-                ev[1].record()
-                events.append(ev)
+            steps.end(metrics["loss"], start)
             if it % args.print_freq == 0:
-                loss = float(metrics["loss"])  # host sync
-                if not math.isfinite(loss):
+                last_loss = float(metrics["loss"])  # host sync
+                steps.flush()
+                if not math.isfinite(last_loss):
                     # NaN guard (main_dino_mc.py:378-380)
-                    print(f"Loss is {loss}, stopping training")
+                    print(f"Loss is {last_loss}, stopping training")
                     sys.exit(1)
-                metric_logger.update(loss=loss, lr=metrics["lr"], wd=metrics["wd"])
+                metric_logger.update(loss=last_loss, lr=metrics["lr"], wd=metrics["wd"])
             if args.max_steps and state.step >= args.max_steps:
                 done = True
                 break
         ckpt.save(state.step, state)
-        last = float(losses[-1]) if losses else float("nan")
-        logger.write({"epoch": epoch, "train_loss": last, "step": state.step,
+        logger.write({"epoch": epoch, "train_loss": last_loss, "step": state.step,
                       "time": time.time()})
         if done:
             break
-    if timed:
-        torch.cuda.synchronize(device)
-    return TrainSummary(
-        losses=[float(x) for x in losses],
-        step_ms=[a.elapsed_time(b) for a, b in events],
-        state=state,
-    )
+    steps.flush()
+    return TrainSummary(losses=steps.losses, step_ms=steps.step_ms, state=state)
 
 
 def main():

@@ -133,7 +133,7 @@ def train_seg(args) -> SegSummary:
     import torch
 
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
-    from dinomc_tpu_torch.cli.common import set_seed
+    from dinomc_tpu_torch.cli.common import StepLog, set_seed
     from dinomc_tpu_torch.core.schedules import cosine_scheduler
     from dinomc_tpu_torch.data import seg_datasets as sd
     from dinomc_tpu_torch.eval import metrics as M
@@ -180,8 +180,7 @@ def train_seg(args) -> SegSummary:
         start_epoch = min(ckpt.latest_step() + 1, args.epochs)
         print(f"resumed from checkpoint at epoch {start_epoch - 1}")
 
-    timed = device.type == "cuda"
-    losses, events, scores = [], [], {}
+    steps, scores = StepLog(timed=device.type == "cuda"), {}
     for epoch in range(start_epoch, args.epochs):
         ml = MetricLogger()
         batches = train_ds.batches(args.batch_size, shuffle=True, seed=epoch)
@@ -189,19 +188,15 @@ def train_seg(args) -> SegSummary:
                                           total=niter):
             imgs = torch.from_numpy(images).to(device, non_blocking=True)
             msks = torch.from_numpy(masks).long().to(device, non_blocking=True)
-            if timed:
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
+            start = steps.begin()
             draws = sd.draw_seg_augment(aug_gen, imgs.shape[0], spec, device)
             imgs, msks = sd.augment_batch(imgs, msks, spec, draws)
             m = seg_train_step(state, imgs, msks, float(lrs[min(state.step, len(lrs) - 1)]),
                                args.weight_decay, cfg)
-            losses.append(m["loss"])
-            if timed:
-                ev[1].record()
-                events.append(ev)
+            steps.end(m["loss"], start)
             if state.step % args.print_freq == 0:
                 loss = float(m["loss"])  # host sync
+                steps.flush()
                 if not math.isfinite(loss):
                     print(f"Loss is {loss}, stopping training")
                     sys.exit(1)
@@ -239,12 +234,11 @@ def train_seg(args) -> SegSummary:
         if args.max_steps and state.step >= args.max_steps:
             break
     wb.finish()
-    if timed:
-        torch.cuda.synchronize(device)
+    steps.flush()
     print(f"best mIoU: {best_miou:.4f}")
     return SegSummary(
-        losses=[float(x) for x in losses],
-        step_ms=[a.elapsed_time(b) for a, b in events],
+        losses=steps.losses,
+        step_ms=steps.step_ms,
         scores=scores,
         best_miou=best_miou,
         state=state,

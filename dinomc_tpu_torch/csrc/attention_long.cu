@@ -29,13 +29,22 @@
 // share its K/V in L2, the card's analogue of the TPU kernel's resident K/V
 // block.
 //
-// K5/K6 are deterministic, with no atomics: the dQ kernel owns 128 query
-// rows, first computes delta = rowsum(dO * O) for them (saved for K6), then
-// loops over key tiles; the dK/dV kernel owns 128 keys and sweeps every
-// 64-row query tile with f32 accumulators. Rows at or past N load as zeros;
-// keys past N are masked out of the softmax and padded query rows out of
-// dK/dV. Their products are WMMA bf16 16x16x16 fragments with f32
-// accumulation, staged through shared memory.
+// K5/K6 are deterministic, with no atomics. K5, the dQ kernel, owns 128
+// query rows, first computes delta = rowsum(dO * O) for them (saved for
+// K6), then loops over key tiles; rows at or past N load as zeros, keys
+// past N are masked out of the softmax. Its products are WMMA bf16 16x16x16
+// fragments with f32 accumulation, staged through shared memory.
+//
+// K6, the dK/dV kernel, is built for Hopper: it runs hopper::dkv_block, the
+// block K2's second launch runs (attention.cu), with no crop boundary and
+// its own tile constants. A block owns DKV_WGS * 64 keys, K and V resident,
+// one consumer warpgroup a 64-key box; a producer warp streams every 64-row
+// Q/dO tile by TMA through DKV_STAGES stages with its lse and delta, and
+// every warpgroup of the block reads each streamed tile. S^T = K Q^T and
+// dP^T = V dO^T are wgmma products from shared memory; P^T and dS^T stay
+// in registers as the A operands of dV += P^T dO and dK += dS^T Q. TMA
+// fills rows past N with zeros, padded query rows get P = 0, and the dK/dV
+// stores clip rows past N.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -52,9 +61,7 @@ namespace {
 
 constexpr int QT = 128;      // query rows per dQ block
 constexpr int KT = 64;       // keys per streamed tile (dQ)
-constexpr int DKV_K = 128;   // keys per dK/dV block
-constexpr int DKV_Q = 64;    // query rows per streamed tile (dK/dV)
-constexpr int NWARPS = 8;    // each warp owns 16 rows of its block's tile
+constexpr int NWARPS = 8;    // each warp owns 16 rows of the dQ block's tile
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int LDS = 64 + 4;  // f32 score tile pitch (every score tile has 64 columns)
 constexpr int LDP = 64 + 8;  // bf16 probability tile pitch
@@ -382,99 +389,35 @@ long_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------------
-// K6: dK, dV
+// K6: dK, dV (wgmma + TMA)
 // ----------------------------------------------------------------------------
 
-// dV = P^T dO and dK = dS^T Q for the block's 128 keys, sweeping every
-// 64-row query tile. Transposed products keep keys as rows.
+// One consumer warpgroup a block, two blocks an SM, three stages: measured
+// faster than two warpgroups a block (which also spill at d = 64) or two
+// stages at every long shape (scripts/attention_variants.py; PERF.md).
+constexpr int DKV_WGS = 1;                       // consumer warpgroups a block, 64 keys each
+constexpr int DKV_STAGES = 3;                    // Q/dO tiles in flight
+constexpr int DKV_THREADS = 128 * DKV_WGS + 32;  // + 1 producer warp
+
+// dV = P^T dO and dK = dS^T Q for the block's keys over every query tile:
+// hopper::dkv_block with every key live (boundary 0).
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-long_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int H,
-                long long sb, long long sn, long long sh, float scale,
-                float scale_log2) {
-  constexpr int LDT = Pitch<D>::T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + DKV_K * LDT;
-  bf16* Qs = Vs + DKV_K * LDT;
-  bf16* dOs = Qs + DKV_Q * LDT;
-  float* St = reinterpret_cast<float*>(dOs + DKV_Q * LDT);
-  float* dPt = St + DKV_K * LDS;
-  bf16* Pt = reinterpret_cast<bf16*>(dPt + DKV_K * LDS);
-  bf16* dSt = Pt + DKV_K * LDP;
-  float* lse_s = reinterpret_cast<float*>(dSt + DKV_K * LDP);
-  float* delta_s = lse_s + DKV_Q;
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c0 = blockIdx.x * DKV_K;
-  const long long base = (long long)b * sb + (long long)h * sh;
-  const long long dbase = ((long long)b * N * H + h) * D;
-  const long long rbase = ((long long)b * H + h) * N;
-  float* Sw = St + warp * 16 * LDS;
-  float* dPw = dPt + warp * 16 * LDS;
-  bf16* Pw = Pt + warp * 16 * LDP;
-  bf16* dSw = dSt + warp * 16 * LDP;
-
-  load_rows<D, DKV_K>(Ks, LDT, k + base, sn, c0, N);
-  load_rows<D, DKV_K>(Vs, LDT, v + base, sn, c0, N);
-  __syncthreads();
-  FragA kf[D / 16], vf[D / 16];
-  FragC dkf[D / 16], dvf[D / 16];
-#pragma unroll
-  for (int kt = 0; kt < D / 16; ++kt) {
-    wmma::load_matrix_sync(kf[kt], Ks + warp * 16 * LDT + kt * 16, LDT);
-    wmma::load_matrix_sync(vf[kt], Vs + warp * 16 * LDT + kt * 16, LDT);
-    wmma::fill_fragment(dkf[kt], 0.f);
-    wmma::fill_fragment(dvf[kt], 0.f);
-  }
-
-  const int krow = warp * 16 + lane / 2, half = lane & 1;
-  const int gk = c0 + krow;
-
-  for (int r0 = 0; r0 < N; r0 += DKV_Q) {
-    __syncthreads();
-    load_rows<D, DKV_Q>(Qs, LDT, q + base, sn, r0, N);
-    load_rows<D, DKV_Q>(dOs, LDT, dout + dbase, (long long)H * D, r0, N);
-    for (int i = threadIdx.x; i < DKV_Q; i += NTHREADS) {
-      const bool in = r0 + i < N;
-      lse_s[i] = in ? lse[rbase + r0 + i] * LOG2E : 0.f;
-      delta_s[i] = in ? delta[rbase + r0 + i] : 0.f;
-    }
-    __syncthreads();
-    scores<D>(Sw, kf, Qs, LDT);
-    scores<D>(dPw, vf, dOs, LDT);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int qc = 2 * j + half;
-      const int i = (krow % 16) * LDS + qc;
-      // padded query rows carry no probability into dK/dV
-      const float p = (r0 + qc < N) ? exp2f(Sw[i] * scale_log2 - lse_s[qc]) : 0.f;
-      Pw[(krow % 16) * LDP + qc] = __float2bfloat16(p);
-      dSw[(krow % 16) * LDP + qc] = __float2bfloat16(p * (dPw[i] - delta_s[qc]) * scale);
-    }
-    __syncwarp();
-    accumulate<D>(dvf, Pw, dOs, LDT);
-    accumulate<D>(dkf, dSw, Qs, LDT);
-  }
-
-  store_rows<D>(dk + dbase, dkf, Sw, krow, half, gk, N, H);
-  store_rows<D>(dv + dbase, dvf, dPw, krow, half, gk, N, H);
+__global__ void __launch_bounds__(DKV_THREADS, 2 / DKV_WGS)
+long_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap dk_map,
+                const __grid_constant__ CUtensorMap dv_map, const float* __restrict__ lse,
+                const float* __restrict__ delta, int N, int H, float scale, float scale_log2) {
+  hopper::dkv_block<D, DKV_WGS, DKV_STAGES>(&q_map, &k_map, &v_map, &do_map, &dk_map, &dv_map,
+                                            lse, delta, N, H, scale, scale_log2, 0);
 }
 
 template <int D> constexpr size_t dq_smem() {
   return (size_t)(2 * QT + 2 * KT) * Pitch<D>::T * 2 + (size_t)2 * QT * LDS * 4 +
          (size_t)QT * LDP * 2;
 }
-template <int D> constexpr size_t dkv_smem() {
-  return (size_t)(2 * DKV_K + 2 * DKV_Q) * Pitch<D>::T * 2 + (size_t)2 * DKV_K * LDS * 4 +
-         (size_t)2 * DKV_K * LDP * 2 + (size_t)2 * DKV_Q * 4;
-}
-
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -519,16 +462,23 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o
 }
 
 template <int D>
-cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                       const float* lse, const float* delta, bf16* dk, bf16* dv, int B,
-                       int N, int H, long long sb, long long sn, long long sh, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
-  cudaError_t err = set_smem(long_dkv_kernel<D>, smem);
+int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+               const float* delta, bf16* dk, bf16* dv, int B, int N, int H, long long sb,
+               long long sn, long long sh, float scale, cudaStream_t stream, int device) {
+  const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
+  if (bound != cudaSuccess) return bound;
+  hopper::DkvMaps maps;
+  const CUresult res = hopper::make_dkv_maps<D>(maps, q, k, v, dout, dk, dv, B, N, H, sb, sn, sh);
+  if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
+  const size_t smem = sizeof(hopper::DkvSmem<D, DKV_WGS, DKV_STAGES>) + 1024;
+  static bool smem_set = false;
+  cudaError_t err = hopper::allow_smem(long_dkv_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + DKV_K - 1) / DKV_K, H, B);
-  long_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv, N,
-                                                       H, sb, sn, sh, scale, scale * LOG2E);
+  // key blocks fastest: one (batch, head)'s blocks run together and share its Q/dO in L2
+  const int rows = DKV_WGS * hopper::BOX_ROWS;
+  dim3 grid((N + rows - 1) / rows, H, B);
+  long_dkv_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, maps.dk, maps.dv, lse, delta, N, H, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -569,20 +519,20 @@ extern "C" int dinomc_long_attn_dq(const void* q, const void* k, const void* v, 
 }
 
 // q, k, v as above; dout, dk, dv contiguous (B, N, H, D) bf16; lse and
-// delta (B, H, N) f32.
+// delta (B, H, N) f32; `device` as above.
 extern "C" int dinomc_long_attn_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, int B, int N, int H, int D,
                                     long long sb, long long sn, long long sh, float scale,
-                                    void* stream) {
+                                    void* stream, int device) {
   const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v;
   const bf16* dop = (const bf16*)dout;
   const float *lp = (const float*)lse, *dp = (const float*)delta;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_dkv<16>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st);
-    case 32: return launch_dkv<32>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st);
-    case 64: return launch_dkv<64>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st);
+    case 16: return launch_dkv<16>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st, device);
+    case 32: return launch_dkv<32>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st, device);
+    case 64: return launch_dkv<64>(qp, kp, vp, dop, lp, dp, (bf16*)dk, (bf16*)dv, B, N, H, sb, sn, sh, scale, st, device);
     default: return (int)cudaErrorInvalidValue;
   }
 }

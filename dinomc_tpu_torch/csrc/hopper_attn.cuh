@@ -1,6 +1,6 @@
-// Device code shared by the Hopper attention kernels: the long-sequence
-// forward K4 (attention_long.cu) and the short-sequence backward K2
-// (attention.cu).
+// Device code shared by the Hopper attention kernels: the short-sequence
+// forward K1 and backward K2 (attention.cu), the long-sequence forward K4
+// and dK/dV K6 (attention_long.cu).
 //
 // - TMA: a tensor map per (B, N, h, d) bf16 tensor, encoded on the host per
 //   call and passed to the kernel as a __grid_constant__ parameter; loads of
@@ -19,6 +19,10 @@
 //   adjacent slices, rounded to bf16 and packed, are exactly the register
 //   A operand of the next product's 16-deep k-slice, so scores never go
 //   through shared memory.
+//
+// - The masks of packed crops (key_live, live_range, edge_tile) and the
+//   dK/dV block (dkv_block) that K2's second launch and K6 both run: K6 is
+//   the case boundary = 0, with its own tile constants.
 //
 // Every tile is d bf16 values a row, so a row is 2d bytes (128, 64 or 32)
 // and the swizzle is that width: TMA writes it, the wgmma descriptors read
@@ -311,6 +315,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem); N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "64 or 128 columns");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
+}
 
 // d (64 x D) += A (64 x 16, registers) * B (16 x D, smem, MN-major).
 template <int D>
@@ -356,6 +367,211 @@ __device__ __forceinline__ void stage_rows(unsigned char* tile, const float (&c)
     *reinterpret_cast<uint32_t*>(tile + swz<D>(row * Swizzle<D>::ROW + col * 2)) =
         pack_bf16(c[i] * s, c[i + 1] * s);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Device: packed crops. Key c is live for query r iff c < N and, when
+// boundary > 0 (two crops packed into one sequence), (c < boundary) ==
+// (r < boundary).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ bool key_live(int r, int c, int N, int boundary) {
+  return c < N && (boundary == 0 || ((c < boundary) == (r < boundary)));
+}
+
+// Index range [lo, hi) of the other axis that rows [r0, r1) can attend to.
+__device__ __forceinline__ void live_range(int r0, int r1, int N, int boundary, int& lo, int& hi) {
+  lo = 0;
+  hi = N;
+  if (boundary > 0) {
+    if (r1 <= boundary) hi = boundary;
+    else if (r0 >= boundary) lo = boundary;
+  }
+}
+
+// Does tile [t0, t0 + TILE) against rows [r0, r1) need the per-element
+// mask: past N, or on both sides of the crop boundary?
+template <int TILE>
+__device__ __forceinline__ bool edge_tile(int r0, int r1, int t0, int N, int boundary) {
+  if (t0 + TILE > N) return true;
+  if (boundary == 0) return false;
+  const bool below = r1 <= boundary && t0 + TILE <= boundary;
+  const bool above = r0 >= boundary && t0 >= boundary;
+  return !(below || above);
+}
+
+// ---------------------------------------------------------------------------
+// Device: the dK/dV block of K2 (attention.cu) and K6 (attention_long.cu).
+// ---------------------------------------------------------------------------
+
+template <int D, int WGS, int STAGES> struct DkvSmem {
+  __nv_bfloat16 k[WGS * BOX_ROWS * D];  // each warpgroup's box stages its dK at the end
+  __nv_bfloat16 v[WGS * BOX_ROWS * D];  // ... and its dV
+  __nv_bfloat16 q[STAGES][BOX_ROWS * D];
+  __nv_bfloat16 dout[STAGES][BOX_ROWS * D];
+  float lse[STAGES][BOX_ROWS];  // log2 units
+  float delta[STAGES][BOX_ROWS];
+  uint64_t full[STAGES], empty[STAGES], rows_full;
+};
+
+// dV = P^T dO and dK = dS^T Q, dS = P * (dP - delta) * scale, for the
+// block's WGS * 64 keys (K and V resident, one 64-key box a consumer
+// warpgroup) over the live 64-row query tiles, which one producer warp
+// streams by TMA through STAGES mbarrier-tracked stages, copying their lse
+// and delta beside them; every warpgroup reads each streamed tile. S^T = K
+// Q^T and dP^T = V dO^T are wgmma products from shared memory with keys as
+// rows; P^T and dS^T stay in registers as the A operands of the two
+// accumulations (dO and Q read MN-major). Padded query rows and, across the
+// crop boundary, dead pairs get P = 0; dK and dV leave by TMA stores that
+// clip rows past N. No atomics: a block owns its keys' sums. Launch with
+// 128 * WGS + 32 threads, grid (ceil(N / (64 WGS)), H, B), and
+// sizeof(DkvSmem) + 1024 bytes of dynamic shared memory.
+template <int D, int WGS, int STAGES>
+__device__ __forceinline__ void dkv_block(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                          const CUtensorMap* v_map, const CUtensorMap* do_map,
+                                          const CUtensorMap* dk_map, const CUtensorMap* dv_map,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta, int N, int H,
+                                          float scale, float scale_log2, int boundary) {
+  constexpr float log2e = 1.4426950408889634f;
+  constexpr int TILE = BOX_ROWS;                // query rows a streamed tile
+  constexpr uint32_t BOX = BOX_ROWS * D * 2;    // bytes of one box
+  constexpr int ROW = Swizzle<D>::ROW;
+  extern __shared__ unsigned char smem_raw[];
+  DkvSmem<D, WGS, STAGES>& sm = aligned_smem<DkvSmem<D, WGS, STAGES>>(smem_raw);
+  const int c0 = blockIdx.x * WGS * BOX_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int c1 = min(c0 + WGS * BOX_ROWS, N);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long rbase = ((long long)b * H + h) * N;
+  int lo, hi;
+  live_range(c0, c1, N, boundary, lo, hi);
+  const int first = (lo / TILE) * TILE;
+  const int ntiles = (hi - first + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);  // every producer lane, one with the TMA bytes
+      mbar_init(&sm.empty[s], 4 * WGS);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.rows_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&sm.rows_full, 2 * WGS * BOX);
+      for (int g = 0; g < WGS; ++g) {
+        tma_load(sm.k + g * BOX_ROWS * D, k_map, &sm.rows_full, h, c0 + g * BOX_ROWS, b);
+        tma_load(sm.v + g * BOX_ROWS * D, v_map, &sm.rows_full, h, c0 + g * BOX_ROWS, b);
+      }
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % STAGES, r0 = first + t * TILE;
+      mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);
+      for (int i = lane; i < TILE; i += 32) {
+        const bool in = r0 + i < N;
+        sm.lse[s][i] = in ? lse[rbase + r0 + i] * log2e : 0.f;
+        sm.delta[s][i] = in ? delta[rbase + r0 + i] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[s], 2 * BOX);
+        tma_load(sm.q[s], q_map, &sm.full[s], h, r0, b);
+        tma_load(sm.dout[s], do_map, &sm.full[s], h, r0, b);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = warp / 4, wl = warp % 4;
+  const int key0 = c0 + wg * BOX_ROWS;
+  __nv_bfloat16* k_tile = sm.k + wg * BOX_ROWS * D;
+  __nv_bfloat16* v_tile = sm.v + wg * BOX_ROWS * D;
+  const uint64_t k_desc = make_desc<D>(k_tile), v_desc = make_desc<D>(v_tile);
+  float dk[D / 2], dv[D / 2];
+  zero(dk);
+  zero(dv);
+  mbar_wait(&sm.rows_full, 0);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES, r0 = first + t * TILE;
+    mbar_wait(&sm.full[s], (t / STAGES) & 1);
+    const uint64_t q_desc = make_desc<D>(sm.q[s]), do_desc = make_desc<D>(sm.dout[s]);
+    float st[TILE / 2], dpt[TILE / 2];  // keys x queries
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(st, k_desc + 2 * kk, q_desc + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dpt, v_desc + 2 * kk, do_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const bool edge = edge_tile<TILE>(c0, c1, r0, N, boundary);
+#pragma unroll
+    for (int i = 0; i < TILE / 2; ++i) {
+      const int col = acc_col(lane, i), gq = r0 + col;
+      float p = exp2f(fmaf(st[i], scale_log2, -sm.lse[s][col]));
+      if (edge && !(gq < N && key_live(gq, key0 + acc_row(wl, lane, i), N, boundary))) p = 0.f;
+      st[i] = p;                                         // P^T
+      dpt[i] = p * (dpt[i] - sm.delta[s][col]) * scale;  // dS^T
+    }
+    uint32_t pa[TILE / 16][4], dsa[TILE / 16][4];  // P^T, dS^T as A operands
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      to_a_operand(pa[kk], st, kk);
+      to_a_operand(dsa[kk], dpt, kk);
+    }
+    fence_regs(dk);
+    fence_regs(dv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_rs<D>(dv, pa[kk], do_desc + (uint64_t)((kk * 16 * ROW) >> 4));
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_rs<D>(dk, dsa[kk], q_desc + (uint64_t)((kk * 16 * ROW) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+  named_sync(1 + wg, 128);  // the warpgroup is done reading its K and V rows
+  stage_rows<D>(reinterpret_cast<unsigned char*>(k_tile), dk, wl, lane, 1.f, 1.f);
+  stage_rows<D>(reinterpret_cast<unsigned char*>(v_tile), dv, wl, lane, 1.f, 1.f);
+  fence_async_smem();
+  named_sync(1 + wg, 128);
+  if (wl == 0 && lane == 0) {
+    tma_store(dk_map, k_tile, h, key0, b);
+    tma_store(dv_map, v_tile, h, key0, b);
+    tma_store_wait();
+  }
+}
+
+// Host: the six tensor maps of a dK/dV launch. q, k, v share strides (sb,
+// sn, sh); dout, dk, dv are contiguous. The caller has bound its device.
+struct DkvMaps {
+  CUtensorMap q, k, v, dout, dk, dv;
+};
+
+template <int D>
+inline CUresult make_dkv_maps(DkvMaps& m, const void* q, const void* k, const void* v,
+                              const void* dout, void* dk, void* dv, int B, int N, int H,
+                              long long sb, long long sn, long long sh) {
+  CUresult res = make_map<D>(&m.q, q, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.k, k, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.v, v, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.dout, dout, B, N, H);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.dk, dk, B, N, H);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.dv, dv, B, N, H);
+  return res;
 }
 
 }  // namespace hopper

@@ -3,7 +3,7 @@
 Counterpart of ``dinomc_tpu/models/vit.py``. Parameters carry the
 reference's timm/DINO names (``patch_embed.proj.weight`` (D, 3, p, p),
 ``blocks.{i}.attn.qkv.weight`` (out, in), ...), so the state dict that
-``dinomc_tpu.ckpt.torch_export.vit_state_dict`` writes loads with
+``dinomc_tpu_torch.ckpt.state_dicts.vit_state_dict`` writes loads with
 ``strict=True``. The forward mirrors the JAX one: patchify + one matmul for
 the stride-p patch embed, bicubic position-embedding interpolation with the
 reference's ``+0.1`` scale fudge, pre-norm blocks with f32 LayerNorm

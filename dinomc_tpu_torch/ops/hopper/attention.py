@@ -84,21 +84,24 @@ def attention_fwd(q, k, v, scale: float, boundary: int):
     err = lib.dinomc_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, N, H, D, sb, sn, sh, float(scale), int(boundary), _build.stream_handle(q),
+        q.device.index,
     )
     _build.check(err, "attention forward")
     _build.LAUNCHES["attention_fwd"] += 1
     return o, lse
 
 
-def _bwd_inputs(q, k, v, do):
-    """K2's inputs: (q, k, v, strides, do) as ``_kernel_args`` returns them,
-    with ``do`` a contiguous bf16 tensor on a 16-byte boundary (its TMA map
-    needs one)."""
-    q, k, v, strides = _kernel_args(q, k, v)
+def _grad_input(do):
+    """``do`` as a backward kernel takes it: a contiguous bf16 tensor on a
+    16-byte boundary (its TMA map needs one)."""
     do = do.to(torch.bfloat16).contiguous()
-    if do.data_ptr() % 16:
-        do = do.clone()
-    return q, k, v, strides, do
+    return do.clone() if do.data_ptr() % 16 else do
+
+
+def _bwd_inputs(q, k, v, do):
+    """K2's inputs: (q, k, v, strides, do) as ``_kernel_args`` and
+    ``_grad_input`` return them."""
+    return (*_kernel_args(q, k, v), _grad_input(do))
 
 
 def _launch_dq(q, k, v, strides, do, o, lse, scale, boundary):

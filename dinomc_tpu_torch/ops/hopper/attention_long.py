@@ -21,7 +21,7 @@ import torch
 
 from dinomc_tpu_torch.ops.hopper import _build
 from dinomc_tpu_torch.ops.remat import kept
-from dinomc_tpu_torch.ops.hopper.attention import _kernel_args
+from dinomc_tpu_torch.ops.hopper.attention import _grad_input, _kernel_args
 
 NAME = "long_mha"
 
@@ -72,12 +72,13 @@ def long_attention_dq(q, k, v, o, lse, do, scale: float):
 def long_attention_dkv(q, k, v, lse, delta, do, scale: float):
     """K6: returns (dk, dv), each (B, N, h, d) bf16 contiguous."""
     q, k, v, (sb, sn, sh) = _kernel_args(q, k, v, NAME)
+    do = _grad_input(do)
     B, N, H, D = q.shape
     dk, dv = (torch.empty((B, N, H, D), dtype=q.dtype, device=q.device) for _ in range(2))
     err = _build.library().dinomc_long_attn_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, H, D, sb, sn, sh,
-        float(scale), _build.stream_handle(q),
+        float(scale), _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "long attention dK/dV")
     _build.LAUNCHES["long_attention_dkv"] += 1
@@ -86,7 +87,7 @@ def long_attention_dkv(q, k, v, lse, delta, do, scale: float):
 
 def long_attention_bwd(q, k, v, o, lse, do, scale: float):
     """K5 then K6: returns (dq, dk, dv)."""
-    do = do.to(torch.bfloat16).contiguous()
+    do = _grad_input(do)
     dq, delta = long_attention_dq(q, k, v, o, lse, do, scale)
     dk, dv = long_attention_dkv(q, k, v, lse, delta, do, scale)
     return dq, dk, dv

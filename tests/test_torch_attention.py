@@ -167,3 +167,42 @@ def test_backward_kernel_is_deterministic(cuda_device, N, boundary, d):
     again = hatt.attention_bwd(q, k, v, o, lse, do, s, boundary)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# chip_smoke.py's ATTN_SHAPES: (B, N, h, d, boundary)
+FWD_SHAPES = [
+    pytest.param(16, 785, 6, 64, 0, id="global-224px"),
+    pytest.param(8, 631, 6, 64, 530, id="packed-184+84px"),
+    pytest.param(8, 627, 6, 64, 401, id="packed-164+124px"),
+    pytest.param(8, 495, 6, 64, 325, id="packed-144+104px"),
+    pytest.param(8, 101, 6, 64, 0, id="single-84px"),
+    pytest.param(2, 70, 2, 32, 33, id="ragged-d32"),
+    pytest.param(3, 50, 4, 16, 0, id="ragged-d16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("B,N,h,d,boundary", FWD_SHAPES)
+def test_forward_kernel_at_every_main_path_shape(cuda_device, B, N, h, d, boundary, layout):
+    """K1 at every shape chip_smoke.py checks: the output within 1e-2 of the
+    plain version, and the saved log-sum-exp that of the plain f32 scores
+    over the live keys within 1e-4 (f32 sums in another order; it is about
+    ln N). The packed shapes have query blocks that straddle the boundary,
+    whose rows past it see whole key tiles of the other crop first (at
+    631/530 the block of rows 512-575 sees four): rows with every key so far
+    dead, which must give P = 0 and not NaN."""
+    gen = torch.Generator(device=cuda_device).manual_seed(N + d + boundary)
+    qkv = torch.randn(B, N, 3, h, d, generator=gen, device=cuda_device).bfloat16()
+    q, k, v = _split(qkv, layout)
+    s = 1.0 / math.sqrt(d)
+    o, lse = hatt.attention_fwd(q, k, v, s, boundary)
+    ref = hatt.fused_mha_reference(q, k, v, s, boundary)
+    scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * s
+    live = hatt._live_mask(N, boundary, q.device)
+    ref_lse = torch.logsumexp(scores.masked_fill(~live, float("-inf")), dim=-1)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and lse.shape == (B, h, N)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - ref.float()).abs().max().item() <= 1e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4

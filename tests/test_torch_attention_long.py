@@ -155,3 +155,46 @@ def test_forward_kernel_at_tile_edges(cuda_device, N, d, layout):
     assert o.shape == q.shape and lse.shape == (2, 3, N)
     assert (o.float() - ref.float()).abs().max().item() <= 1e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def _long_grads(device, N, d, B=2, h=3):
+    """K4's o and lse, K5's dq and delta, K6's dk and dv on the strided qkv
+    views, and the plain version's (dq, dk, dv)."""
+    gen = torch.Generator(device=device).manual_seed(10 * N + d)
+    qkv = torch.randn(B, N, 3, h, d, generator=gen, device=device).bfloat16()
+    do = torch.randn(B, N, h, d, generator=gen, device=device).bfloat16()
+    q, k, v = qkv.unbind(2)
+    s = 1.0 / math.sqrt(d)
+    o, lse = hlong.long_attention_fwd(q, k, v, s)
+    dq, delta = hlong.long_attention_dq(q, k, v, o, lse, do, s)
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(hlong.long_mha_reference(*xs, s), xs, do)
+    return (q, k, v, lse, delta, do, s), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 1025, 4097])
+def test_dkv_kernel_at_tile_edges(cuda_device, N, d):
+    """K6 at lengths on and beside its 64-row query tiles and 64-key boxes,
+    at each head dim (each its own swizzle): dK and dV within 2e-2 of the
+    plain version's, relative to its largest magnitude (chip_smoke.py's
+    bound); 1e-5 absolute beside it for N = 1, where dK is exactly 0 (the
+    one key's dS is P (dP - delta) with P = 1 and dP = delta)."""
+    args, (_, ref_dk, ref_dv) = _long_grads(cuda_device, N, d)
+    dk, dv = hlong.long_attention_dkv(*args)
+    torch.cuda.synchronize()
+    for got, ref in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item() + 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d", [(4097, 64), (1100, 32), (1030, 16)])
+def test_dkv_kernel_is_deterministic(cuda_device, N, d):
+    """K6 has no atomics: two calls on the same inputs give the same bits."""
+    args, _ = _long_grads(cuda_device, N, d)
+    first, again = hlong.long_attention_dkv(*args), hlong.long_attention_dkv(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))

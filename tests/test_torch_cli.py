@@ -2,7 +2,9 @@
 CPU, with its checkpoints (ckpt/checkpoint.py) and host loader
 (data/loader.py)."""
 
+import json
 import math
+import weakref
 
 import jax
 import numpy as np
@@ -17,6 +19,7 @@ from dinomc_tpu_torch.cli.train_dino import get_args_parser, train_dino
 from dinomc_tpu_torch.data.loader import PrefetchLoader, ShardedSampler
 from dinomc_tpu_torch.train import dino_trainer as ttr
 from _torch_port import n, one_torch_thread  # noqa: F401
+from PIL import Image
 
 SMOKE = [
     "--device", "cpu", "--arch", "vit_tiny", "--patch_size", "16", "--out_dim", "256",
@@ -44,6 +47,47 @@ def test_train_then_resume(tmp_path):
     assert ckpts.steps() == [2, 3]
     # the resumed run restored the AdamW counts before stepping on
     assert second.state.opt_state["count"]["backbone.cls_token"] == 3
+
+
+def _image_folder(root, count, size=64):
+    root.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(count):
+        img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+        Image.fromarray(img).save(root / f"img_{i}.png")
+    return str(root)
+
+
+def test_epoch_line_holds_the_last_print_steps_loss(tmp_path):
+    """Two epochs of two steps at --print_freq 2: each epoch's last step is
+    not a print step, so log.txt holds the loss of the epoch's first step,
+    the last one printed, as the JAX CLI writes it; the summary still has
+    one loss a step."""
+    data = _image_folder(tmp_path / "images", 4)
+    out = train_dino(_args(tmp_path / "run", "--data_path", data, "--epochs", "2",
+                           "--print_freq", "2"))
+    assert len(out.losses) == 4 and len(set(out.losses)) == 4
+    lines = [json.loads(x) for x in (tmp_path / "run" / "log.txt").read_text().splitlines()]
+    assert [x["epoch"] for x in lines] == [0, 1]
+    assert [x["train_loss"] for x in lines] == [out.losses[0], out.losses[2]]
+
+
+def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
+    """The CLI holds a step's loss tensor only until the next print step: of
+    the loss tensors the steps returned, at most --print_freq are alive at
+    any step, however long the run."""
+    real, refs, alive = ttr.dino_train_step, [], []
+
+    def step(*args, **kwargs):
+        alive.append(sum(r() is not None for r in refs))
+        metrics = real(*args, **kwargs)
+        refs.append(weakref.ref(metrics["loss"]))
+        return metrics
+
+    monkeypatch.setattr(ttr, "dino_train_step", step)
+    out = train_dino(_args(tmp_path, "--max_steps", "7", "--print_freq", "3"))
+    assert len(out.losses) == 7 and all(math.isfinite(x) for x in out.losses)
+    assert len(alive) == 7 and max(alive) <= 3, alive
 
 
 @pytest.mark.parametrize("flags", [

@@ -8,11 +8,13 @@ import json
 import os
 import subprocess
 import sys
+import weakref
 
 import pytest
 import torch
 
 from dinomc_tpu_torch.cli.train_seg import get_args_parser, train_seg
+from dinomc_tpu_torch.train import seg_trainer
 from _torch_port import one_torch_thread, write_seg_folder  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,6 +43,24 @@ def test_train_then_resume(tmp_path):
     assert [r["epoch"] for r in rows] == ["0", "1"] and "iou/Building" in rows[0]
     kept = [p for p in os.listdir(tmp_path / "checkpoints") if p.endswith(".pth")]
     assert len(kept) == 1  # best mIoU only
+
+
+def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
+    """The CLI holds a step's loss tensor only until the next print step: of
+    the loss tensors the steps returned, at most --print_freq are alive at
+    any step; the summary keeps one loss a step."""
+    real, refs, alive = seg_trainer.seg_train_step, [], []
+
+    def step(*args, **kwargs):
+        alive.append(sum(r() is not None for r in refs))
+        m = real(*args, **kwargs)
+        refs.append(weakref.ref(m["loss"]))
+        return m
+
+    monkeypatch.setattr(seg_trainer, "seg_train_step", step)
+    out = train_seg(_args(tmp_path, "--epochs", "1", "--max_steps", "5", "--print_freq", "2"))
+    assert len(out.losses) == 5 and all(torch.isfinite(torch.tensor(out.losses)))
+    assert len(alive) == 5 and max(alive) <= 2, alive
 
 
 @pytest.mark.parametrize("flags", [["--seq_parallel", "2"], ["--pretrained_ckpt", "some_orbax_dir"]])
