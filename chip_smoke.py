@@ -20,8 +20,9 @@ script exits non-zero:
 5. long-sequence attention K4 (forward), K5 (dQ) and K6 (dK/dV) against
    their plain version on the card, in bf16, at the segmentation path's
    shapes (4097 tokens at 512 px, patch 8), past the TPU kernel's 5120 cap,
-   and a few ragged small ones; K6's gradients bit-identical on a repeated
-   call; K4 timed with and without the host's cost;
+   and a few ragged small ones; K5's dQ and delta and K6's dK/dV
+   bit-identical on a repeated call; K4 and K5 timed with and without the
+   host's cost;
 6. the segmentation entry point, ``dinomc_tpu_torch.cli.train_seg.train_seg``,
    twice at the published widths (ViT-S/8 UPerNet, 512 px, batch 4, 8 UAVid
    classes, synthetic data, weights from a seed): decoder-only and with the
@@ -43,7 +44,8 @@ script exits non-zero:
    plain route's bit for bit; timed at the 224 px globals beside the plain
    version and the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain;
 10. the head-stacked window attention K9 (forward) and K10 (backward) against
-   their plain version at phase 7's shapes; each 224 px stage timed beside
+   their plain version at phase 7's shapes, K10's gradients bit-identical on
+   a repeated call; each 224 px stage timed beside
    K7/K8 (phase 7's plain, SDPA and bound columns apply); then its main path,
    ``window_attention(..., variant='stacked')`` through autograd over the 12
    Swin-T blocks' shapes at 224 px (16 images), as the JAX package's callers
@@ -68,8 +70,8 @@ script checks that the card was still spinning when the last call was
 queued, and fails if it never was. A ``host_`` time is CUDA
 events around 10 calls issued back to back with no spin kernel, so it also
 holds the host's cost of issuing them where that exceeds the device's
-(phases 2, 5 and 7; K1, K2, K4 and K6 encode their TMA tensor maps on the
-host at every call).
+(phases 2, 5 and 7; K1, K2, K4, K5, K6 and K10 encode their TMA tensor
+maps on the host at every call).
 
 Each kernel's bound is the least time the card could take for the work:
 the larger of the bytes it must move (each input read once, each output
@@ -474,13 +476,16 @@ def phase_long_attention(torch):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip((dq, dk, dv), g_r)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_r))
-        # K6 is deterministic (no atomics): a second call gives the same bits
-        _, delta = hl.long_attention_dq(q, k, v, o, lse, do, scale)
-        same = all(torch.equal(a, b) for a, b in zip(
+        # K5 and K6 are deterministic (no atomics): a second call gives the
+        # same bits
+        dq2, delta = hl.long_attention_dq(q, k, v, o, lse, do, scale)
+        _, delta2 = hl.long_attention_dq(q, k, v, o, lse, do, scale)
+        same_dq = torch.equal(dq, dq2) and torch.equal(delta, delta2)
+        same = same_dq and all(torch.equal(a, b) for a, b in zip(
             (dk, dv), hl.long_attention_dkv(q, k, v, lse, delta, do, scale)))
         print(f"[long attention] {what}: B={B} N={N} h={h} d={d}  fwd max|diff| "
-              f"{fwd_err:.3e}  dq/dk/dv max abs {errs}  max rel {rel:.3e}  dK/dV "
-              f"bit-identical on a repeat: {same}")
+              f"{fwd_err:.3e}  dq/dk/dv max abs {errs}  max rel {rel:.3e}  dQ and delta "
+              f"bit-identical on a repeat: {same_dq}, dK/dV too: {same}")
         if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"long attention kernels disagree with their plain version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "dq": max(worst["dq"], errs[0]),
@@ -494,6 +499,9 @@ def phase_long_attention(torch):
                 "host_fwd_ms": _host_ms(torch, lambda: hl.long_attention_fwd(q, k, v, scale)),
                 "fwd_plain_ms": _time_ms(torch, lambda: hl.long_mha_reference(q, k, v, scale)),
                 "dq_ms": _time_ms(torch, lambda: hl.long_attention_dq(q, k, v, o, lse, dob, scale)),
+                # with the host's cost of issuing (tensor maps encoded per call)
+                "host_dq_ms": _host_ms(torch, lambda: hl.long_attention_dq(
+                    q, k, v, o, lse, dob, scale)),
                 "dq_plain_ms": _time_ms(torch, lambda: torch.autograd.grad(
                     ref, qr, do, retain_graph=True)),
                 "dkv_ms": _time_ms(torch, lambda: hl.long_attention_dkv(
@@ -757,11 +765,15 @@ def phase_window_attention_stacked(torch, win_t):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
+        # K10 is deterministic (no atomics): a second call gives the same bits
+        same = all(torch.equal(a, b) for a, b in zip(
+            grads, wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)))
         print(f"[stacked window attention] {what}: windows={nB} heads={heads} "
               f"(a block: {wa.head_chunk(heads, wa.STACKED_HEADS['fwd'])} / "
               f"{wa.head_chunk(heads, wa.STACKED_HEADS['bwd'])} heads)  fwd max|diff| "
-              f"{fwd_err:.3e}  dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}")
-        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+              f"{fwd_err:.3e}  dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}  "
+              f"backward bit-identical on a repeat: {same}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"stacked window attention kernels disagree with their plain "
                                  f"version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),

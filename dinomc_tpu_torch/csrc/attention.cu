@@ -32,14 +32,14 @@
 // against 0 instead, so its P is 0 and not NaN. O leaves by a TMA store,
 // the log-sum-exp (natural log) by plain stores.
 //
-// K2: deterministic, no atomics, two launches. The dQ launch owns 64
-// query rows (Q, dO resident), computes delta = rowsum(dO * O) for them,
-// then per live 64-key tile forms S = Q K^T and dP = dO V^T with wgmma
-// from shared memory, dS in registers, and dQ += dS K with dS as the
-// register A operand. The dK/dV launch (hopper::dkv_block, shared with K6)
-// owns 64 keys (K, V resident), streams the live 64-row Q/dO tiles with
-// their lse and delta, forms S^T = K Q^T and dP^T = V dO^T, and adds P^T dO
-// and dS^T Q.
+// K2: deterministic, no atomics, two launches. The dQ launch
+// (hopper::dq_block, shared with K5) owns 64 query rows (Q, dO resident),
+// computes delta = rowsum(dO * O) for them, then per live 64-key tile forms
+// S = Q K^T and dP = dO V^T with wgmma from shared memory, dS in registers,
+// and dQ += dS K with dS as the register A operand. The dK/dV launch
+// (hopper::dkv_block, shared with K6) owns 64 keys (K, V resident), streams
+// the live 64-row Q/dO tiles with their lse and delta, forms S^T = K Q^T
+// and dP^T = V dO^T, and adds P^T dO and dS^T Q.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -226,23 +226,9 @@ constexpr int BWD_ROWS = 64 * BWD_WGS;            // rows a block owns: queries 
 constexpr int BWD_TILE = 64;                      // rows a streamed tile: keys (dQ) or queries (dK/dV)
 constexpr int BWD_STAGES = 2;                     // streamed tiles in flight
 constexpr int BWD_THREADS = 128 * BWD_WGS + 32;   // + 1 producer warp
-constexpr int BWD_PRODUCER = 4 * BWD_WGS;         // the producer's warp index
 
-template <int D> struct DqSmem {
-  bf16 q[BWD_ROWS * D];  // each warpgroup's half stages its dQ at the end
-  bf16 dout[BWD_ROWS * D];
-  bf16 k[BWD_STAGES][BWD_TILE * D];
-  bf16 v[BWD_STAGES][BWD_TILE * D];
-  float delta[BWD_ROWS];
-  uint64_t full[BWD_STAGES], empty[BWD_STAGES], rows_full;
-};
-
-// dQ = dS K with dS = P * (dP - delta) * scale, P = exp(S - lse), dP = dO
-// V^T, for the block's query rows (Q and dO resident) over the live
-// key tiles (K, V streamed by TMA). First computes delta = rowsum(dO * O)
-// for its rows and writes it for the dK/dV kernel. S and dP are wgmma
-// products from shared memory; dS stays in registers as the A operand of
-// dS K (K read MN-major).
+// dQ = dS K for the block's query rows, and delta for the dK/dV launch:
+// hopper::dq_block.
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS, 2 / BWD_WGS)
 attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -252,141 +238,9 @@ attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap dq_map, const bf16* __restrict__ o,
                    const float* __restrict__ lse, float* __restrict__ delta, int N, int H,
                    float scale, float scale_log2, int boundary) {
-  using namespace hopper;
-  extern __shared__ unsigned char smem_raw[];
-  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
-  constexpr uint32_t BOX = BOX_ROWS * D * 2;
-  constexpr int ROW = Swizzle<D>::ROW;
-  const int r0 = blockIdx.x * BWD_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int r1 = min(r0 + BWD_ROWS, N);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int lo, hi;
-  live_range(r0, r1, N, boundary, lo, hi);
-  const int first = (lo / BWD_TILE) * BWD_TILE;
-  const int ntiles = (hi - first + BWD_TILE - 1) / BWD_TILE;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < BWD_STAGES; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], 4 * BWD_WGS);  // one arrival per consumer warp
-    }
-    mbar_init(&sm.rows_full, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == BWD_PRODUCER) {
-    if (lane == 0) {
-      mbar_expect_tx(&sm.rows_full, 2 * BWD_WGS * BOX);
-      for (int g = 0; g < BWD_WGS; ++g) {
-        tma_load(sm.q + g * BOX_ROWS * D, &q_map, &sm.rows_full, h, r0 + g * BOX_ROWS, b);
-        tma_load(sm.dout + g * BOX_ROWS * D, &do_map, &sm.rows_full, h, r0 + g * BOX_ROWS, b);
-      }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % BWD_STAGES;
-        mbar_wait(&sm.empty[s], ((t / BWD_STAGES) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[s], 2 * BOX);
-        tma_load(sm.k[s], &k_map, &sm.full[s], h, first + t * BWD_TILE, b);
-        tma_load(sm.v[s], &v_map, &sm.full[s], h, first + t * BWD_TILE, b);
-      }
-    }
-    return;
-  }
-
-  // consumers
-  const int wg = warp / 4, wl = warp % 4;
-  const int row0 = r0 + wg * BOX_ROWS;
-  bf16* q_tile = sm.q + wg * BOX_ROWS * D;
-  const bf16* do_tile = sm.dout + wg * BOX_ROWS * D;
-  const long long rbase = ((long long)b * H + h) * N;
-  mbar_wait(&sm.rows_full, 0);
-
-  {  // delta for the warpgroup's 64 rows, two threads a row
-    const int t = threadIdx.x % 128, row = t / 2, half = t % 2;
-    const int grow = row0 + row;
-    float acc = 0.f;
-    if (grow < N) {
-      const bf16* orow = o + (((long long)b * N + grow) * H + h) * D;
-#pragma unroll
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 dv = *reinterpret_cast<const uint4*>(
-            reinterpret_cast<const unsigned char*>(do_tile) + swz<D>(row * ROW + c * 2));
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 x = __bfloat1622float2(o2[j]), y = __bfloat1622float2(d2[j]);
-          acc += x.x * y.x + x.y * y.y;
-        }
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      sm.delta[wg * BOX_ROWS + row] = acc;
-      if (grow < N) delta[rbase + grow] = acc;
-    }
-  }
-  named_sync(1 + wg, 128);
-  float lse2[2], dl[2];  // rows r, r + 8: lse in log2 units, delta
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int row = acc_row(wl, lane, 2 * rr);
-    lse2[rr] = row0 + row < N ? lse[rbase + row0 + row] * LOG2E : 0.f;
-    dl[rr] = sm.delta[wg * BOX_ROWS + row];
-  }
-
-  const uint64_t q_desc = make_desc<D>(q_tile), do_desc = make_desc<D>(do_tile);
-  float dq[D / 2];
-  zero(dq);
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % BWD_STAGES;
-    mbar_wait(&sm.full[s], (t / BWD_STAGES) & 1);
-    const uint64_t k_desc = make_desc<D>(sm.k[s]), v_desc = make_desc<D>(sm.v[s]);
-    float sc[BWD_TILE / 2], dp[BWD_TILE / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    fence_regs(dp);
-
-    const int c0 = first + t * BWD_TILE;
-    const bool edge = edge_tile<BWD_TILE>(r0, r1, c0, N, boundary);
-#pragma unroll
-    for (int i = 0; i < BWD_TILE / 2; ++i) {
-      const int rr = (i / 2) % 2;
-      float p = exp2f(fmaf(sc[i], scale_log2, -lse2[rr]));
-      if (edge && !key_live(row0 + acc_row(wl, lane, i), c0 + acc_col(lane, i), N, boundary))
-        p = 0.f;
-      sc[i] = p * (dp[i] - dl[rr]) * scale;  // dS
-    }
-    uint32_t dsa[BWD_TILE / 16][4];  // dS, bf16, as the A operand of each 16-key slice
-#pragma unroll
-    for (int kk = 0; kk < BWD_TILE / 16; ++kk) to_a_operand(dsa[kk], sc, kk);
-    fence_regs(dq);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BWD_TILE / 16; ++kk)
-      wgmma_rs<D>(dq, dsa[kk], k_desc + (uint64_t)((kk * 16 * ROW) >> 4));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&sm.empty[s]);
-  }
-
-  named_sync(1 + wg, 128);  // the warpgroup is done reading its Q rows
-  stage_rows<D>(reinterpret_cast<unsigned char*>(q_tile), dq, wl, lane, 1.f, 1.f);
-  fence_async_smem();
-  named_sync(1 + wg, 128);
-  if (wl == 0 && lane == 0) {
-    tma_store(&dq_map, q_tile, h, row0, b);
-    tma_store_wait();
-  }
+  hopper::dq_block<D, BWD_WGS, BWD_STAGES, BWD_TILE>(&q_map, &k_map, &v_map, &do_map, &dq_map, o,
+                                                     lse, delta, N, H, scale, scale_log2,
+                                                     boundary);
 }
 
 // dV = P^T dO and dK = dS^T Q for the block's keys: hopper::dkv_block.
@@ -434,21 +288,17 @@ int launch_bwd_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                   int boundary, cudaStream_t stream, int device) {
   const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
   if (bound != cudaSuccess) return bound;
-  CUtensorMap q_map, k_map, v_map, do_map, dq_map;
-  CUresult res = CUDA_SUCCESS;
-  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&q_map, q, B, N, H, sb, sn, sh);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&k_map, k, B, N, H, sb, sn, sh);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&v_map, v, B, N, H, sb, sn, sh);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&do_map, dout, B, N, H);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<D>(&dq_map, dq, B, N, H);
+  hopper::DqMaps maps;
+  const CUresult res = hopper::make_dq_maps<D>(maps, q, k, v, dout, dq, B, N, H, sb, sn, sh);
   if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
-  const size_t smem = sizeof(DqSmem<D>) + 1024;
+  const size_t smem = sizeof(hopper::DqSmem<D, BWD_WGS, BWD_STAGES, BWD_TILE>) + 1024;
   static bool smem_set = false;
   cudaError_t err = hopper::allow_smem(attn_bwd_dq_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BWD_ROWS - 1) / BWD_ROWS, H, B);
   attn_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
-      q_map, k_map, v_map, do_map, dq_map, o, lse, delta, N, H, scale, scale * LOG2E, boundary);
+      maps.q, maps.k, maps.v, maps.dout, maps.dq, o, lse, delta, N, H, scale, scale * LOG2E,
+      boundary);
   return cudaGetLastError();
 }
 

@@ -29,120 +29,40 @@
 // share its K/V in L2, the card's analogue of the TPU kernel's resident K/V
 // block.
 //
-// K5/K6 are deterministic, with no atomics. K5, the dQ kernel, owns 128
-// query rows, first computes delta = rowsum(dO * O) for them (saved for
-// K6), then loops over key tiles; rows at or past N load as zeros, keys
-// past N are masked out of the softmax. Its products are WMMA bf16 16x16x16
-// fragments with f32 accumulation, staged through shared memory.
+// K5 and K6 are deterministic, with no atomics, and built for Hopper too,
+// each on a block it shares with K2 (attention.cu), with no crop boundary
+// and its own tile constants.
 //
-// K6, the dK/dV kernel, is built for Hopper: it runs hopper::dkv_block, the
-// block K2's second launch runs (attention.cu), with no crop boundary and
-// its own tile constants. A block owns DKV_WGS * 64 keys, K and V resident,
-// one consumer warpgroup a 64-key box; a producer warp streams every 64-row
-// Q/dO tile by TMA through DKV_STAGES stages with its lse and delta, and
-// every warpgroup of the block reads each streamed tile. S^T = K Q^T and
-// dP^T = V dO^T are wgmma products from shared memory; P^T and dS^T stay
-// in registers as the A operands of dV += P^T dO and dK += dS^T Q. TMA
-// fills rows past N with zeros, padded query rows get P = 0, and the dK/dV
-// stores clip rows past N.
+// K5, the dQ kernel, runs hopper::dq_block, K2's first launch: a block owns
+// DQ_WGS * 64 query rows, Q and dO resident, one consumer warpgroup a
+// 64-row box; it first computes delta = rowsum(dO * O) for them (saved for
+// K6), then a producer warp streams every DQ_KEYS-key K/V tile by TMA
+// through DQ_STAGES stages. S = Q K^T and dP = dO V^T are wgmma products
+// from shared memory; dS stays in registers as the A operand of dQ += dS K.
+// Keys past N load as zeros and get P = 0; the dQ store clips rows past N.
+//
+// K6, the dK/dV kernel, runs hopper::dkv_block, K2's second launch. A block
+// owns DKV_WGS * 64 keys, K and V resident, one consumer warpgroup a 64-key
+// box; a producer warp streams every 64-row Q/dO tile by TMA through
+// DKV_STAGES stages with its lse and delta, and every warpgroup of the
+// block reads each streamed tile. S^T = K Q^T and dP^T = V dO^T are wgmma
+// products from shared memory; P^T and dS^T stay in registers as the A
+// operands of dV += P^T dO and dK += dS^T Q. TMA fills rows past N with
+// zeros, padded query rows get P = 0, and the dK/dV stores clip rows past N.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_attn.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int QT = 128;      // query rows per dQ block
-constexpr int KT = 64;       // keys per streamed tile (dQ)
-constexpr int NWARPS = 8;    // each warp owns 16 rows of the dQ block's tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDS = 64 + 4;  // f32 score tile pitch (every score tile has 64 columns)
-constexpr int LDP = 64 + 8;  // bf16 probability tile pitch
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-template <int D> struct Pitch {
-  static constexpr int T = D + 8;  // bf16 q/k/v/dO tile pitch
-};
-
-// Copy rows [row0, row0 + ROWS) of one (batch, head) slice into shared
-// memory with pitch ld; rows at or past N load as zeros. 16-byte vector
-// loads: the wrapper checks that pointers and strides are multiples of 8.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src,
-                                          long long sn, int row0, int N) {
-  constexpr int VPR = D / 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < N)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * sn + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// out (16 x 64 f32, pitch LDS) = A (16 x D, fragments) * B^T, B a 64 x D
-// row-major tile with pitch ldb.
-template <int D>
-__device__ __forceinline__ void scores(float* out, const FragA* a, const bf16* b, int ldb) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kt = 0; kt < D / 16; ++kt) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, b + nt * 16 * ldb + kt * 16, ldb);
-      wmma::mma_sync(acc, a[kt], bf, acc);
-    }
-    wmma::store_matrix_sync(out + nt * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[D/16] (16 x D) += A (16 x 64 bf16, pitch LDP) * B (64 x D row-major, pitch ldb).
-template <int D>
-__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a, const bf16* b, int ldb) {
-#pragma unroll
-  for (int kt = 0; kt < 4; ++kt) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + kt * 16, LDP);
-#pragma unroll
-    for (int dt = 0; dt < D / 16; ++dt) {
-      FragBRow bf;
-      wmma::load_matrix_sync(bf, b + kt * 16 * ldb + dt * 16, ldb);
-      wmma::mma_sync(acc[dt], af, bf, acc[dt]);
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 accumulators as bf16 rows of a contiguous
-// (B, N, H, D) tensor, staging them through its f32 score tile.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out_base, const FragC* acc, float* stage,
-                                           int row, int half, int grow, int N, int H) {
-  __syncwarp();
-#pragma unroll
-  for (int dt = 0; dt < D / 16; ++dt)
-    wmma::store_matrix_sync(stage + dt * 16, acc[dt], LDS, wmma::mem_row_major);
-  __syncwarp();
-  if (grow < N) {
-    bf16* dst = out_base + (long long)grow * H * D;
-    const float* src = stage + (row % 16) * LDS;
-    for (int j = half; j < D; j += 2) dst[j] = __float2bfloat16(src[j]);
-  }
-}
 
 // ----------------------------------------------------------------------------
 // K4: forward (wgmma + TMA)
@@ -308,84 +228,29 @@ long_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ----------------------------------------------------------------------------
-// K5: dQ (and delta for K6)
+// K5: dQ, and delta for K6 (wgmma + TMA)
 // ----------------------------------------------------------------------------
 
-// dQ = dS K with dS = P * (dP - delta) * scale, dP = dO V^T, and
-// delta = rowsum(dO * O) computed here for the block's rows.
+// Tile constants, timed against each other by scripts/attention_variants.py
+// (PERF.md).
+constexpr int DQ_WGS = 1;                      // consumer warpgroups a block, 64 query rows each
+constexpr int DQ_KEYS = 64;                    // keys a streamed K/V tile: 64 or 128
+constexpr int DQ_STAGES = 2;                   // K/V tiles in flight
+constexpr int DQ_THREADS = 128 * DQ_WGS + 32;  // + 1 producer warp
+
+// dQ = dS K for the block's query rows over every key tile, and delta:
+// hopper::dq_block with every key live (boundary 0).
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-long_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ o,
-               const bf16* __restrict__ dout, const float* __restrict__ lse,
-               float* __restrict__ delta, bf16* __restrict__ dq, int N, int H,
-               long long sb, long long sn, long long sh, float scale,
-               float scale_log2) {
-  constexpr int LDT = Pitch<D>::T;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + QT * LDT;
-  bf16* Ks = dOs + QT * LDT;
-  bf16* Vs = Ks + KT * LDT;
-  float* Ss = reinterpret_cast<float*>(Vs + KT * LDT);
-  float* dPs = Ss + QT * LDS;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + QT * LDS);
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = blockIdx.x * QT;
-  const long long base = (long long)b * sb + (long long)h * sh;
-  const long long dbase = ((long long)b * N * H + h) * D;  // contiguous (B, N, H, D)
-  float* Sw = Ss + warp * 16 * LDS;
-  float* dPw = dPs + warp * 16 * LDS;
-  bf16* dSw = dSs + warp * 16 * LDP;
-
-  load_rows<D, QT>(Qs, LDT, q + base, sn, r0, N);
-  load_rows<D, QT>(dOs, LDT, dout + dbase, (long long)H * D, r0, N);
-  __syncthreads();
-
-  const int row = warp * 16 + lane / 2, half = lane & 1;
-  const int grow = r0 + row;
-  const long long rix = ((long long)b * H + h) * N + grow;
-  float d_r = 0.f;
-  if (grow < N) {
-    const bf16* orow = o + dbase + (long long)grow * H * D;
-    for (int j = half; j < D; j += 2)
-      d_r += __bfloat162float(orow[j]) * __bfloat162float(dOs[row * LDT + j]);
-  }
-  d_r += __shfl_xor_sync(0xffffffffu, d_r, 1);
-  if (grow < N && half == 0) delta[rix] = d_r;
-  const float lse_r = grow < N ? lse[rix] * LOG2E : 0.f;
-
-  FragA qf[D / 16], dof[D / 16];
-  FragC dqf[D / 16];
-#pragma unroll
-  for (int kt = 0; kt < D / 16; ++kt) {
-    wmma::load_matrix_sync(qf[kt], Qs + warp * 16 * LDT + kt * 16, LDT);
-    wmma::load_matrix_sync(dof[kt], dOs + warp * 16 * LDT + kt * 16, LDT);
-    wmma::fill_fragment(dqf[kt], 0.f);
-  }
-
-  for (int c0 = 0; c0 < N; c0 += KT) {
-    __syncthreads();
-    load_rows<D, KT>(Ks, LDT, k + base, sn, c0, N);
-    load_rows<D, KT>(Vs, LDT, v + base, sn, c0, N);
-    __syncthreads();
-    scores<D>(Sw, qf, Ks, LDT);
-    scores<D>(dPw, dof, Vs, LDT);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const int c = 2 * j + half;
-      const int i = (row % 16) * LDS + c;
-      const float p = (grow < N && c0 + c < N) ? exp2f(Sw[i] * scale_log2 - lse_r) : 0.f;
-      dSw[(row % 16) * LDP + c] = __float2bfloat16(p * (dPw[i] - d_r) * scale);
-    }
-    __syncwarp();
-    accumulate<D>(dqf, dSw, Ks, LDT);
-  }
-
-  store_rows<D>(dq + dbase, dqf, Sw, row, half, grow, N, H);
+__global__ void __launch_bounds__(DQ_THREADS, DQ_KEYS == 64 ? 2 / DQ_WGS : 1)
+long_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap dq_map, const bf16* __restrict__ o,
+               const float* __restrict__ lse, float* __restrict__ delta, int N, int H,
+               float scale, float scale_log2) {
+  hopper::dq_block<D, DQ_WGS, DQ_STAGES, DQ_KEYS>(&q_map, &k_map, &v_map, &do_map, &dq_map, o,
+                                                  lse, delta, N, H, scale, scale_log2, 0);
 }
 
 // ----------------------------------------------------------------------------
@@ -414,15 +279,6 @@ long_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                                             lse, delta, N, H, scale, scale_log2, 0);
 }
 
-template <int D> constexpr size_t dq_smem() {
-  return (size_t)(2 * QT + 2 * KT) * Pitch<D>::T * 2 + (size_t)2 * QT * LDS * 4 +
-         (size_t)QT * LDP * 2;
-}
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <int D>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                int B, int N, int H, long long sb, long long sn, long long sh,
@@ -448,16 +304,23 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
 }
 
 template <int D>
-cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                      const bf16* dout, const float* lse, float* delta, bf16* dq, int B,
-                      int N, int H, long long sb, long long sn, long long sh, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  cudaError_t err = set_smem(long_dq_kernel<D>, smem);
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
+              const float* lse, float* delta, bf16* dq, int B, int N, int H, long long sb,
+              long long sn, long long sh, float scale, cudaStream_t stream, int device) {
+  const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
+  if (bound != cudaSuccess) return bound;
+  hopper::DqMaps maps;
+  const CUresult res = hopper::make_dq_maps<D>(maps, q, k, v, dout, dq, B, N, H, sb, sn, sh);
+  if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
+  const size_t smem = sizeof(hopper::DqSmem<D, DQ_WGS, DQ_STAGES, DQ_KEYS>) + 1024;
+  static bool smem_set = false;
+  cudaError_t err = hopper::allow_smem(long_dq_kernel<D>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + QT - 1) / QT, H, B);
-  long_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(q, k, v, o, dout, lse, delta, dq, N, H,
-                                                      sb, sn, sh, scale, scale * LOG2E);
+  // query tiles fastest: one (batch, head)'s tiles run together and share its K/V in L2
+  const int rows = DQ_WGS * hopper::BOX_ROWS;
+  dim3 grid((N + rows - 1) / rows, H, B);
+  long_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, maps.dq, o, lse, delta, N, H, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -502,18 +365,18 @@ extern "C" int dinomc_long_attn_fwd(const void* q, const void* k, const void* v,
 }
 
 // As above, plus o, dout, dq contiguous (B, N, H, D) bf16 and delta (B, H, N)
-// f32, written here and read by dinomc_long_attn_dkv.
+// f32, written here and read by dinomc_long_attn_dkv; `device` as above.
 extern "C" int dinomc_long_attn_dq(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* lse, void* delta, void* dq,
                                    int B, int N, int H, int D, long long sb, long long sn,
-                                   long long sh, float scale, void* stream) {
+                                   long long sh, float scale, void* stream, int device) {
   const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k, *vp = (const bf16*)v;
   const bf16 *op = (const bf16*)o, *dop = (const bf16*)dout;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 16: return launch_dq<16>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st);
-    case 32: return launch_dq<32>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st);
-    case 64: return launch_dq<64>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st);
+    case 16: return launch_dq<16>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st, device);
+    case 32: return launch_dq<32>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st, device);
+    case 64: return launch_dq<64>(qp, kp, vp, op, dop, (const float*)lse, (float*)delta, (bf16*)dq, B, N, H, sb, sn, sh, scale, st, device);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
 // Device code shared by the Hopper attention kernels: the short-sequence
-// forward K1 and backward K2 (attention.cu), the long-sequence forward K4
-// and dK/dV K6 (attention_long.cu).
+// forward K1 and backward K2 (attention.cu), the long-sequence forward K4,
+// dQ K5 and dK/dV K6 (attention_long.cu), and, through hopper_window.cuh,
+// the window-attention backward K10 (window_attention_stacked.cu).
 //
 // - TMA: a tensor map per (B, N, h, d) bf16 tensor, encoded on the host per
 //   call and passed to the kernel as a __grid_constant__ parameter; loads of
@@ -11,8 +12,9 @@
 //   they are done with a stage.
 // - wgmma: shared-memory descriptors, fences, commit/wait, and the m64nNk16
 //   bf16 -> f32 instructions with both operands in shared memory (the
-//   score-like products, K-major) or A in registers and B MN-major (the
-//   products that accumulate over keys or queries).
+//   score-like products, K-major; or both MN-major, reading a stored tile
+//   transposed) or A in registers and B MN-major (the products that
+//   accumulate over keys or queries).
 // - The accumulator layout: thread t of warp w in a warpgroup holds, for
 //   each 8-column slice j, rows 16w + t/4 (+8) and columns 8j + 2(t%4)
 //   (+1), registers 4j + {0, 1} (row) and 4j + {2, 3} (row + 8). Two
@@ -20,9 +22,10 @@
 //   A operand of the next product's 16-deep k-slice, so scores never go
 //   through shared memory.
 //
-// - The masks of packed crops (key_live, live_range, edge_tile) and the
-//   dK/dV block (dkv_block) that K2's second launch and K6 both run: K6 is
-//   the case boundary = 0, with its own tile constants.
+// - The masks of packed crops (key_live, live_range, edge_tile), the dK/dV
+//   block (dkv_block) that K2's second launch and K6 both run, and the dQ
+//   block (dq_block) that K2's first launch and K5 both run: K6 and K5 are
+//   the case boundary = 0, with their own tile constants.
 //
 // Every tile is d bf16 values a row, so a row is 2d bytes (128, 64 or 32)
 // and the swizzle is that width: TMA writes it, the wgmma descriptors read
@@ -315,6 +318,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32, f32) (+)= A (64 x 16, smem) * B (16 x 32, smem); both
+// MN-major (A's tile has K as rows, M contiguous: the transpose of a stored
+// tile is read).
+__device__ __forceinline__ void wgmma_ss_tt_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem); N = 64 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
@@ -571,6 +587,200 @@ inline CUresult make_dkv_maps(DkvMaps& m, const void* q, const void* k, const vo
   if (res == CUDA_SUCCESS) res = make_map<D>(&m.dout, dout, B, N, H);
   if (res == CUDA_SUCCESS) res = make_map<D>(&m.dk, dk, B, N, H);
   if (res == CUDA_SUCCESS) res = make_map<D>(&m.dv, dv, B, N, H);
+  return res;
+}
+
+// ---------------------------------------------------------------------------
+// Device: the dQ block of K2 (attention.cu) and K5 (attention_long.cu).
+// ---------------------------------------------------------------------------
+
+template <int D, int WGS, int STAGES, int KEYS> struct DqSmem {
+  __nv_bfloat16 q[WGS * BOX_ROWS * D];  // each warpgroup's box stages its dQ at the end
+  __nv_bfloat16 dout[WGS * BOX_ROWS * D];
+  __nv_bfloat16 k[STAGES][KEYS * D];
+  __nv_bfloat16 v[STAGES][KEYS * D];
+  float delta[WGS * BOX_ROWS];
+  uint64_t full[STAGES], empty[STAGES], rows_full;
+};
+
+// dQ = dS K with dS = P * (dP - delta) * scale, P = exp(S - lse), dP = dO
+// V^T, for the block's WGS * 64 query rows (Q and dO resident, one 64-row
+// box a consumer warpgroup) over the live KEYS-key tiles, which one
+// producer warp streams by TMA through STAGES mbarrier-tracked stages. First
+// computes delta = rowsum(dO * O) for its rows (o contiguous (B, N, H, D))
+// and writes it for the dK/dV launch. S and dP are wgmma products from
+// shared memory; dS stays in registers as the A operand of dS K (K read
+// MN-major). Padded key columns and, across the crop boundary, dead pairs
+// get P = 0; dQ leaves by a TMA store that clips rows past N. No atomics: a
+// block owns its rows' sums. Launch with 128 * WGS + 32 threads, grid
+// (ceil(N / (64 WGS)), H, B), and sizeof(DqSmem) + 1024 bytes of dynamic
+// shared memory.
+template <int D, int WGS, int STAGES, int KEYS>
+__device__ __forceinline__ void dq_block(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                         const CUtensorMap* v_map, const CUtensorMap* do_map,
+                                         const CUtensorMap* dq_map,
+                                         const __nv_bfloat16* __restrict__ o,
+                                         const float* __restrict__ lse,
+                                         float* __restrict__ delta, int N, int H, float scale,
+                                         float scale_log2, int boundary) {
+  static_assert(KEYS == 64 || KEYS == 128, "64 or 128 keys a streamed tile");
+  constexpr float log2e = 1.4426950408889634f;
+  constexpr uint32_t BOX = BOX_ROWS * D * 2;  // bytes of one box
+  constexpr int ROW = Swizzle<D>::ROW;
+  constexpr int ROWS = WGS * BOX_ROWS;        // query rows a block owns
+  using Smem = DqSmem<D, WGS, STAGES, KEYS>;
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
+  const int r0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int r1 = min(r0 + ROWS, N);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int lo, hi;
+  live_range(r0, r1, N, boundary, lo, hi);
+  const int first = (lo / KEYS) * KEYS;
+  const int ntiles = (hi - first + KEYS - 1) / KEYS;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * WGS);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.rows_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {  // producer
+    if (lane == 0) {
+      mbar_expect_tx(&sm.rows_full, 2 * WGS * BOX);
+      for (int g = 0; g < WGS; ++g) {
+        tma_load(sm.q + g * BOX_ROWS * D, q_map, &sm.rows_full, h, r0 + g * BOX_ROWS, b);
+        tma_load(sm.dout + g * BOX_ROWS * D, do_map, &sm.rows_full, h, r0 + g * BOX_ROWS, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES, c0 = first + t * KEYS;
+        mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * (KEYS / BOX_ROWS) * BOX);
+#pragma unroll
+        for (int j = 0; j < KEYS / BOX_ROWS; ++j) {
+          tma_load(sm.k[s] + j * BOX_ROWS * D, k_map, &sm.full[s], h, c0 + j * BOX_ROWS, b);
+          tma_load(sm.v[s] + j * BOX_ROWS * D, v_map, &sm.full[s], h, c0 + j * BOX_ROWS, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int wg = warp / 4, wl = warp % 4;
+  const int row0 = r0 + wg * BOX_ROWS;
+  __nv_bfloat16* q_tile = sm.q + wg * BOX_ROWS * D;
+  const __nv_bfloat16* do_tile = sm.dout + wg * BOX_ROWS * D;
+  const long long rbase = ((long long)b * H + h) * N;
+  mbar_wait(&sm.rows_full, 0);
+
+  {  // delta for the warpgroup's 64 rows, two threads a row
+    const int t = threadIdx.x % 128, row = t / 2, half = t % 2;
+    const int grow = row0 + row;
+    float acc = 0.f;
+    if (grow < N) {
+      const __nv_bfloat16* orow = o + (((long long)b * N + grow) * H + h) * D;
+#pragma unroll
+      for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(
+            reinterpret_cast<const unsigned char*>(do_tile) + swz<D>(row * ROW + c * 2));
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 x = __bfloat1622float2(o2[j]), y = __bfloat1622float2(d2[j]);
+          acc += x.x * y.x + x.y * y.y;
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sm.delta[wg * BOX_ROWS + row] = acc;
+      if (grow < N) delta[rbase + grow] = acc;
+    }
+  }
+  named_sync(1 + wg, 128);
+  float lse2[2], dl[2];  // rows r, r + 8: lse in log2 units, delta
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = acc_row(wl, lane, 2 * rr);
+    lse2[rr] = row0 + row < N ? lse[rbase + row0 + row] * log2e : 0.f;
+    dl[rr] = sm.delta[wg * BOX_ROWS + row];
+  }
+
+  const uint64_t q_desc = make_desc<D>(q_tile), do_desc = make_desc<D>(do_tile);
+  float dq[D / 2];
+  zero(dq);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(&sm.full[s], (t / STAGES) & 1);
+    const uint64_t k_desc = make_desc<D>(sm.k[s]), v_desc = make_desc<D>(sm.v[s]);
+    float sc[KEYS / 2], dp[KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<KEYS>(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<KEYS>(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const int c0 = first + t * KEYS;
+    const bool edge = edge_tile<KEYS>(r0, r1, c0, N, boundary);
+#pragma unroll
+    for (int i = 0; i < KEYS / 2; ++i) {
+      const int rr = (i / 2) % 2;
+      float p = exp2f(fmaf(sc[i], scale_log2, -lse2[rr]));
+      if (edge && !key_live(row0 + acc_row(wl, lane, i), c0 + acc_col(lane, i), N, boundary))
+        p = 0.f;
+      sc[i] = p * (dp[i] - dl[rr]) * scale;  // dS
+    }
+    uint32_t dsa[KEYS / 16][4];  // dS, bf16, as the A operand of each 16-key slice
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk) to_a_operand(dsa[kk], sc, kk);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KEYS / 16; ++kk)
+      wgmma_rs<D>(dq, dsa[kk], k_desc + (uint64_t)((kk * 16 * ROW) >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+  named_sync(1 + wg, 128);  // the warpgroup is done reading its Q rows
+  stage_rows<D>(reinterpret_cast<unsigned char*>(q_tile), dq, wl, lane, 1.f, 1.f);
+  fence_async_smem();
+  named_sync(1 + wg, 128);
+  if (wl == 0 && lane == 0) {
+    tma_store(dq_map, q_tile, h, row0, b);
+    tma_store_wait();
+  }
+}
+
+// Host: the five tensor maps of a dQ launch. q, k, v share strides (sb, sn,
+// sh); dout and dq are contiguous. The caller has bound its device.
+struct DqMaps {
+  CUtensorMap q, k, v, dout, dq;
+};
+
+template <int D>
+inline CUresult make_dq_maps(DqMaps& m, const void* q, const void* k, const void* v,
+                             const void* dout, void* dq, int B, int N, int H, long long sb,
+                             long long sn, long long sh) {
+  CUresult res = make_map<D>(&m.q, q, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.k, k, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.v, v, B, N, H, sb, sn, sh);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.dout, dout, B, N, H);
+  if (res == CUDA_SUCCESS) res = make_map<D>(&m.dq, dq, B, N, H);
   return res;
 }
 

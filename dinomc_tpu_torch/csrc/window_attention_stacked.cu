@@ -10,37 +10,43 @@
 // softmax(Q K^T * scale + bias[h] + mask[w mod nW]) V, and in the backward
 // dQ, dK, dV and dbias[h] = the sum of dS over all windows, in f32.
 //
-// What bounds it on this card: as K7/K8, a (window, head) is about 25 FLOP a
-// byte of Q/K/V/O traffic, far below the card's ~295: memory traffic and
-// latency (tiny products, many barriers), not the tensor cores.
+// What bounds it on this card: as K7/K8, memory traffic and latency, not
+// the tensor cores: a (window, head) is about 25 FLOP a byte forward and 35
+// backward, against the card's ~295.
 //
-// Design: the TPU variant's idea, not its operands. Its idea is all the heads
-// of a window in one unit of work; on the TPU that meant block-stacked,
-// zero-masked K' and V' operands (`_stack_heads`) filling a 128-wide
-// systolic array with zeros, and none of that is kept. Here a block owns a
-// chunk of hc heads over a range of consecutive windows, one warp a head.
-// Per window it reads the q/k/v (and dO) rows of its hc heads as contiguous
-// runs of hc * 32 channels in 16-byte loads (K7 reads one head's 64 bytes a
-// token), and loads the window's mask once for all its heads (K7 loads it
-// once per head). Each warp pads its head's window from 49 to 64 rows in
-// shared memory for WMMA bf16 16x16x16 (keys past 49 at -inf, rows past 49
-// never written) and walks the 64 query rows in four 16-row strips, so its
-// scores are staged a strip at a time; bias[h] is read from global memory
-// (L1/L2), not staged. The forward holds up to 8 heads a block, the backward
-// up to 4 (it keeps the head's whole P and dS, 64 x 64 bf16 each, for dK =
-// dS^T Q and dV = P^T dO, and an f32 dbias accumulator): stage 4 (24 heads)
-// takes 3 and 6 chunks. dbias is deterministic, with no atomics: each lane
-// owns fixed (row, column) elements of its head's accumulator in shared
-// memory and adds its f32 dS there window after window; the block writes one
-// (hc, 49, 49) partial, and a second kernel sums the partials in a fixed
-// order, as K8's does.
+// K9's design: the TPU variant's idea, not its operands. Its idea is all the
+// heads of a window in one unit of work; on the TPU that meant
+// block-stacked, zero-masked K' and V' operands (`_stack_heads`) filling a
+// 128-wide systolic array with zeros, and none of that is kept. Here a
+// block owns a chunk of hc <= 8 heads over a range of consecutive windows,
+// one warp a head. Per window it reads the q/k/v rows of its hc heads as
+// contiguous runs of hc * 32 channels in 16-byte loads (K7 reads one head's
+// 64 bytes a token), and loads the window's mask once for all its heads (K7
+// loads it once per head). Each warp pads its head's window from 49 to 64
+// rows in shared memory for WMMA bf16 16x16x16 (keys past 49 at -inf, rows
+// past 49 never written) and walks the 64 query rows in four 16-row strips,
+// so its scores are staged a strip at a time; bias[h] is read from global
+// memory (L1/L2), not staged.
+//
+// K10's design keeps the same idea on the card's means (hopper_window.cuh,
+// window_bwd_block): a block owns a chunk of HC heads over a range of
+// consecutive windows, one consumer warpgroup a head; a producer warp
+// TMA-loads each window's Q, K, V and dO boxes for the chunk's heads and its
+// mask, once for all of them, through a ring of WINS_BWD_STAGES stages; the
+// five products are wgmma; dQ, dK, dV leave by TMA stores. dbias is
+// deterministic, with no atomics: each thread owns fixed elements of its
+// head's sum across the block's windows, the block writes one (HC, 49, 49)
+// partial, and a second kernel sums the partials in a fixed order, as K8's
+// does. The wrapper sizes the grid to one wave of resident blocks, so the
+// partials are few.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
-#include <type_traits>
+
+#include "hopper_window.cuh"
 
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
@@ -54,18 +60,14 @@ constexpr int HD = 32;        // head dim
 constexpr int LDS = R + 4;    // f32 strip pitch
 constexpr int LDP = R + 8;    // bf16 P / dS pitch
 constexpr int MAX_FWD_HEADS = 8;
-constexpr int MAX_BWD_HEADS = 4;
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 constexpr size_t MASK_BYTES = align128((size_t)WW2 * 4);
 constexpr size_t STRIP_BYTES = (size_t)16 * LDS * 4;      // one f32 16-row strip
 constexpr size_t PSTRIP_BYTES = (size_t)16 * LDP * 2;     // one bf16 16-row strip
-constexpr size_t TILE_P_BYTES = (size_t)R * LDP * 2;      // a head's whole P or dS
 constexpr size_t FWD_WARP_BYTES = STRIP_BYTES + PSTRIP_BYTES;
-constexpr size_t BWD_WARP_BYTES = 2 * STRIP_BYTES + 2 * TILE_P_BYTES + MASK_BYTES;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragACol;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
@@ -113,18 +115,15 @@ __device__ __forceinline__ void strip_abt(float* out, const bf16* a, int lda, co
 }
 
 // out (16 x 32 f32, pitch LDS) = A (16 x 64 bf16, pitch LDP) * B (64 x 32
-// row-major, pitch ldb). With TRANS, A is read transposed: its rows are
-// columns a, a+1, ... of a (64 x 64) tile (dS^T Q, P^T dO).
-template <bool TRANS>
+// row-major, pitch ldb): P V for one strip.
 __device__ __forceinline__ void strip_ab(float* out, const bf16* a, const bf16* b, int ldb) {
   FragC acc[HD / 16];
 #pragma unroll
   for (int dt = 0; dt < HD / 16; ++dt) wmma::fill_fragment(acc[dt], 0.f);
 #pragma unroll
   for (int kt = 0; kt < R / 16; ++kt) {
-    typename std::conditional<TRANS, FragACol, FragA>::type af;
-    if constexpr (TRANS) wmma::load_matrix_sync(af, a + kt * 16 * LDP, LDP);
-    else wmma::load_matrix_sync(af, a + kt * 16, LDP);
+    FragA af;
+    wmma::load_matrix_sync(af, a + kt * 16, LDP);
 #pragma unroll
     for (int dt = 0; dt < HD / 16; ++dt) {
       FragBRow bf;
@@ -236,7 +235,7 @@ wins_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 32; ++j) Pw[lrow * LDP + 2 * j + half] = __float2bfloat16(p[j]);
       __syncwarp();
-      strip_ab<false>(Sw, Pw, Vs + warp * HD, ldc);
+      strip_ab(Sw, Pw, Vs + warp * HD, ldc);
       __syncwarp();
       if (row < WW)
         store16(o + (long long)w * osw + (long long)row * osn + h * HD + half * 16,
@@ -247,102 +246,36 @@ wins_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ----------------------------------------------------------------------------
-// K10: backward
+// K10: backward (wgmma + TMA)
 // ----------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(MAX_BWD_HEADS * 32)
-wins_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ bias, const float* __restrict__ mask,
-                bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                float* __restrict__ dbias_part, int nB, int H, int hc, int nW,
-                int mask_rows, int wpc, long long sw, long long sn, long long osw,
-                long long osn, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldc = tile_pitch(hc);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + R * ldc;
-  bf16* Vs = Ks + R * ldc;
-  bf16* dOs = Vs + R * ldc;
-  unsigned char* rest = reinterpret_cast<unsigned char*>(dOs + R * ldc);
-  float* Ms = mask ? reinterpret_cast<float*>(rest) : nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  unsigned char* mine = rest + (mask ? MASK_BYTES : 0) + warp * BWD_WARP_BYTES;
-  float* Sst = reinterpret_cast<float*>(mine);
-  float* dPst = reinterpret_cast<float*>(mine + STRIP_BYTES);
-  bf16* Ps = reinterpret_cast<bf16*>(mine + 2 * STRIP_BYTES);
-  bf16* dSs = reinterpret_cast<bf16*>(mine + 2 * STRIP_BYTES + TILE_P_BYTES);
-  float* dB = reinterpret_cast<float*>(mine + 2 * STRIP_BYTES + 2 * TILE_P_BYTES);
+// Windows in flight a block, timed with the heads a block
+// (ops/hopper/window_attention.STACKED_HEADS) by
+// scripts/attention_variants.py (PERF.md). A block of three heads in two
+// stages uses 196 KB of shared memory; three heads in three stages, or four
+// in two, need 254 KB and do not fit in the 227 KB a block may use.
+constexpr int WINS_BWD_STAGES = 2;
+constexpr int MAX_BWD_HEADS = 3;
 
-  const int h0 = blockIdx.y * hc, h = h0 + warp;
-  const float* bias_h = bias + (long long)h * WW2;
-  const int lrow = lane / 2, half = lane & 1;
-  const int w0 = blockIdx.x * wpc, w1 = min(w0 + wpc, nB);
+template <int HC> constexpr int wins_bwd_threads() { return 128 * HC + 32; }  // + 1 producer warp
 
-  zero_pad_rows(Qs, ldc);
-  zero_pad_rows(Ks, ldc);
-  zero_pad_rows(Vs, ldc);
-  zero_pad_rows(dOs, ldc);
-  for (int i = lane; i < WW2; i += 32) dB[i] = 0.f;
-
-  for (int w = w0; w < w1; ++w) {
-    __syncthreads();
-    const long long base = (long long)w * sw + (long long)h0 * HD;
-    const long long obase = (long long)w * osw + (long long)h0 * HD;
-    load_window(Qs, ldc, q + base, sn, hc);
-    load_window(Ks, ldc, k + base, sn, hc);
-    load_window(Vs, ldc, v + base, sn, hc);
-    load_window(dOs, ldc, dout + obase, osn, hc);
-    if (Ms)
-      for (int i = threadIdx.x; i < mask_rows * WW; i += blockDim.x)
-        Ms[i] = mask[(long long)(w % nW) * mask_rows * WW + i];
-    __syncthreads();
-
-    // P and dS of this head, a strip at a time; dS summed into dbias.
-    for (int st = 0; st < R / 16; ++st) {
-      const int row = st * 16 + lrow;
-      strip_abt(Sst, Qs + st * 16 * ldc + warp * HD, ldc, Ks + warp * HD, ldc);
-      strip_abt(dPst, dOs + st * 16 * ldc + warp * HD, ldc, Vs + warp * HD, ldc);
-      __syncwarp();
-      float p[32];
-      row_probs(p, Sst + lrow * LDS, bias_h, Ms, mask_rows, row, half, scale);
-      const float* dprow = dPst + lrow * LDS;
-      float delta = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) delta += p[j] * dprow[2 * j + half];
-      delta += __shfl_xor_sync(0xffffffffu, delta, 1);
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int c = 2 * j + half;
-        const float ds = p[j] * (dprow[c] - delta);  // 0 where p is
-        Ps[row * LDP + c] = __float2bfloat16(p[j]);
-        dSs[row * LDP + c] = __float2bfloat16(ds);
-        if (row < WW && c < WW) dB[row * WW + c] += ds;
-      }
-      __syncwarp();  // the strips are rewritten by the next one
-    }
-
-    // dQ = dS K, dK = dS^T Q, dV = P^T dO, 16 rows at a time.
-    for (int st = 0; st < R / 16; ++st) {
-      const int row = st * 16 + lrow;
-      strip_ab<false>(Sst, dSs + st * 16 * LDP, Ks + warp * HD, ldc);
-      strip_ab<true>(dPst, dSs + st * 16, Qs + warp * HD, ldc);
-      __syncwarp();
-      const long long off = (long long)w * osw + (long long)row * osn + h * HD + half * 16;
-      if (row < WW) {
-        store16(dq + off, Sst + lrow * LDS + half * 16, scale);
-        store16(dk + off, dPst + lrow * LDS + half * 16, scale);
-      }
-      __syncwarp();
-      strip_ab<true>(Sst, Ps + st * 16, dOs + warp * HD, ldc);
-      __syncwarp();
-      if (row < WW) store16(dv + off, Sst + lrow * LDS + half * 16, 1.f);
-      __syncwarp();
-    }
-  }
-
-  float* part = dbias_part + ((long long)blockIdx.x * H + h) * WW2;
-  for (int i = lane; i < WW2; i += 32) part[i] = dB[i];
+// The backward of a chunk of HC heads over a range of windows:
+// hopper::window_bwd_block. One head a block leaves room for two blocks an
+// SM.
+template <int HC>
+__global__ void __launch_bounds__(128 * HC + 32, HC == 1 ? 2 : 1)
+wins_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap dq_map,
+                const __grid_constant__ CUtensorMap dk_map,
+                const __grid_constant__ CUtensorMap dv_map, const float* __restrict__ bias,
+                const float* __restrict__ mask, float* __restrict__ dbias_part, int nB, int H,
+                int nW, int mask_rows, int wpc, float scale) {
+  hopper::window_bwd_block<HC, WINS_BWD_STAGES>(&q_map, &k_map, &v_map, &do_map, &dq_map,
+                                                &dk_map, &dv_map, bias, mask, dbias_part, nB, H,
+                                                nW, mask_rows, wpc, scale);
 }
 
 // dbias[i] = sum over x of part[x, i], x in order: deterministic.
@@ -358,8 +291,42 @@ __global__ void wins_dbias_reduce_kernel(const float* __restrict__ part,
 size_t fwd_smem(int hc, bool masked) {
   return (size_t)3 * R * tile_pitch(hc) * 2 + (masked ? MASK_BYTES : 0) + hc * FWD_WARP_BYTES;
 }
-size_t bwd_smem(int hc, bool masked) {
-  return (size_t)4 * R * tile_pitch(hc) * 2 + (masked ? MASK_BYTES : 0) + hc * BWD_WARP_BYTES;
+
+template <int HC> constexpr size_t wins_bwd_smem() {
+  return sizeof(hopper::WinBwdSmem<HC, WINS_BWD_STAGES>) + 1024;
+}
+
+// Raise K10's shared memory limit for HC heads a block, once.
+template <int HC> cudaError_t wins_bwd_allow_smem() {
+  static bool done = false;
+  return hopper::allow_smem(wins_bwd_kernel<HC>, wins_bwd_smem<HC>(), done);
+}
+
+template <int HC>
+int launch_wins_bwd(const void* q, const void* k, const void* v, const void* dout,
+                    const float* bias, const float* mask, void* dq, void* dk, void* dv,
+                    float* part, int nB, int H, int nW, int mask_rows, int wpc, long long sw,
+                    long long sn, float scale, cudaStream_t stream) {
+  hopper::WinBwdMaps maps;
+  const CUresult res =
+      hopper::make_win_bwd_maps(maps, q, k, v, dout, dq, dk, dv, nB, H, sw, sn);
+  if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
+  const cudaError_t err = wins_bwd_allow_smem<HC>();
+  if (err != cudaSuccess) return err;
+  dim3 grid((nB + wpc - 1) / wpc, H / HC);
+  wins_bwd_kernel<HC><<<grid, wins_bwd_threads<HC>(), wins_bwd_smem<HC>(), stream>>>(
+      maps.q, maps.k, maps.v, maps.dout, maps.dq, maps.dk, maps.dv, bias, mask, part, nB, H, nW,
+      mask_rows, wpc, scale);
+  return cudaGetLastError();
+}
+
+template <int HC> int wins_bwd_per_sm() {
+  const cudaError_t err = wins_bwd_allow_smem<HC>();
+  if (err != cudaSuccess) return -(int)err;
+  int n = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, wins_bwd_kernel<HC>, wins_bwd_threads<HC>(), wins_bwd_smem<HC>());
+  return occ == cudaSuccess ? n : -(int)occ;
 }
 
 bool bad_chunk(int H, int hc, int most) { return hc < 1 || hc > most || H % hc != 0; }
@@ -388,31 +355,43 @@ extern "C" int dinomc_wins_attn_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// As above (hc <= 4), plus dout, dq, dk, dv: (nB, 49, C) bf16 with strides
-// (osw, osn); dbias_part: (ceil(nB / wpc), H, 49, 49) f32 scratch; dbias:
-// (H, 49, 49) f32.
+// Blocks of K10 with hc heads (1 <= hc <= 3) that one SM of `device` holds
+// at once, or minus a cudaError_t: the wrapper sizes its grid to one wave.
+extern "C" int dinomc_wins_attn_bwd_per_sm(int hc, int device) {
+  const cudaError_t bound = cudaSetDevice(device);
+  if (bound != cudaSuccess) return -(int)bound;
+  switch (hc) {
+    case 1: return wins_bwd_per_sm<1>();
+    case 2: return wins_bwd_per_sm<2>();
+    case 3: return wins_bwd_per_sm<3>();
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// As above (hc <= 3; q, k, v 16-byte aligned with sw, sn multiples of 8),
+// plus dout, dq, dk, dv: contiguous (nB, 49, C) bf16; dbias_part:
+// (ceil(nB / wpc), H, 49, 49) f32 scratch; dbias: (H, 49, 49) f32;
+// `device`: the CUDA device of the tensors and the stream.
 extern "C" int dinomc_wins_attn_bwd(const void* q, const void* k, const void* v,
                                     const void* dout, const void* bias, const void* mask,
                                     void* dq, void* dk, void* dv, void* dbias_part,
                                     void* dbias, int nB, int H, int hc, int nW, int mask_rows,
-                                    int wpc, long long sw, long long sn, long long osw,
-                                    long long osn, float scale, void* stream) {
+                                    int wpc, long long sw, long long sn, float scale,
+                                    void* stream, int device) {
   if (bad_chunk(H, hc, MAX_BWD_HEADS)) return (int)cudaErrorInvalidValue;
+  const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
+  if (bound != cudaSuccess) return (int)bound;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = bwd_smem(hc, mask != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      wins_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nx = (nB + wpc - 1) / wpc;
-  dim3 grid(nx, H / hc);
-  wins_bwd_kernel<<<grid, hc * 32, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)bias, (const float*)mask, (bf16*)dq, (bf16*)dk, (bf16*)dv,
-      (float*)dbias_part, nB, H, hc, nW, mask_rows, wpc, sw, sn, osw, osn, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = H * WW2;
-  wins_dbias_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(
-      (const float*)dbias_part, (float*)dbias, nx, n);
+  const float *bp = (const float*)bias, *mp = (const float*)mask;
+  float* part = (float*)dbias_part;
+  int err;
+  switch (hc) {
+    case 1: err = launch_wins_bwd<1>(q, k, v, dout, bp, mp, dq, dk, dv, part, nB, H, nW, mask_rows, wpc, sw, sn, scale, st); break;
+    case 2: err = launch_wins_bwd<2>(q, k, v, dout, bp, mp, dq, dk, dv, part, nB, H, nW, mask_rows, wpc, sw, sn, scale, st); break;
+    default: err = launch_wins_bwd<3>(q, k, v, dout, bp, mp, dq, dk, dv, part, nB, H, nW, mask_rows, wpc, sw, sn, scale, st); break;
+  }
+  if (err != 0) return err;
+  const int nx = (nB + wpc - 1) / wpc, n = H * WW2;
+  wins_dbias_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, (float*)dbias, nx, n);
   return (int)cudaGetLastError();
 }

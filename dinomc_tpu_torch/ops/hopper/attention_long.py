@@ -62,7 +62,7 @@ def long_attention_dq(q, k, v, o, lse, do, scale: float):
     err = _build.library().dinomc_long_attn_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, N, H, D, sb, sn, sh,
-        float(scale), _build.stream_handle(q),
+        float(scale), _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "long attention dQ")
     _build.LAUNCHES["long_attention_dq"] += 1

@@ -12,9 +12,10 @@ a block-diagonal mask; the CUDA kernels compute one window at a time, so
 nothing of that packing (``pick_group``, the rank-49 augmentation, the
 stacked variant's block-stacked K'/V' operands) is kept. K7/K8 give a block
 one head over many windows; K9/K10 give a block a chunk of heads of each of
-its windows, one warp a head. The backward's dbias comes from per-block
-partials summed in a fixed order (no atomics) and stays in f32; the TPU
-kernels round dS to bf16 before summing it.
+its windows, one warp a head (K9) or one warpgroup a head (K10, on wgmma
+and TMA, ``csrc/hopper_window.cuh``). The backward's dbias comes from
+per-block partials summed in a fixed order (no atomics) and stays in f32;
+the TPU kernels round dS to bf16 before summing it.
 
 ``window_attention`` launches the kernels of its ``variant`` for CUDA
 tensors (bf16 q/k/v only) and runs ``window_attention_reference`` for CPU
@@ -35,10 +36,11 @@ from dinomc_tpu_torch.ops.hopper import _build
 
 WINDOW_TOKENS = 49  # a 7 x 7 window
 HEAD_DIM = 32
-BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM
-# Most heads a block of K9 / K10 holds in shared memory (csrc/
-# window_attention_stacked.cu): the backward keeps each head's whole P and dS.
-STACKED_HEADS = {"fwd": 8, "bwd": 4}
+BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K7-K9)
+# Most heads a block of K9 / K10 takes (csrc/window_attention_stacked.cu):
+# K9 holds up to 8, K10 up to 3 in shared memory; K10's is timed against 1
+# and 2 by scripts/attention_variants.py (PERF.md).
+STACKED_HEADS = {"fwd": 8, "bwd": 3}
 
 
 def window_attention_reference(
@@ -67,11 +69,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None):
+def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None,
+                 per_sm: int = BLOCKS_PER_SM):
     """Validate the kernels' inputs; returns (q, k, v, bias, mask, geometry)
     with geometry = (nB, nW, mask_rows, wpc, sw, sn), copying q/k/v only
     when they do not share a kernel-readable layout. ``chunks``: the blocks
-    a window's heads take (``heads`` for K7/K8, one a head)."""
+    a window's heads take (``heads`` for K7/K8, one a head); ``per_sm``:
+    the blocks the windows are cut into, per SM."""
     name = "window_attention"
     _build.require_cuda(name, q, k, v, bias, *(() if mask is None else (mask,)))
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -99,7 +103,7 @@ def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None):
     )
     if not ok:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    blocks = BLOCKS_PER_SM * _sm_count(q.device.index or 0)
+    blocks = per_sm * _sm_count(q.device.index or 0)
     wpc = max(1, -(-nB * (chunks or heads) // blocks))
     return q, k, v, bias.contiguous(), mask, (nB, nW, mask_rows, wpc) + q.stride()[:2]
 
@@ -163,12 +167,25 @@ def window_attention_stacked_fwd(q, k, v, bias, mask, heads: int) -> torch.Tenso
     return o
 
 
+@functools.cache
+def _stacked_bwd_per_sm(hc: int, index: int) -> int:
+    """Blocks of K10 with ``hc`` heads that one SM holds at once."""
+    n = _build.library().dinomc_wins_attn_bwd_per_sm(hc, index)
+    if n <= 0:
+        raise RuntimeError(f"stacked window attention backward: no block of {hc} heads fits "
+                           f"an SM (CUDA error {-n})")
+    return n
+
+
 def window_attention_stacked_bwd(q, k, v, bias, mask, do, heads: int):
     """K10 (and its fixed-order dbias reduction): returns (dq, dk, dv), each
-    (nB, 49, C) bf16 contiguous, and dbias (heads, 49, 49) f32."""
+    (nB, 49, C) bf16 contiguous, and dbias (heads, 49, 49) f32. The windows
+    are cut into one wave of resident blocks."""
     hc = head_chunk(heads, STACKED_HEADS["bwd"])
+    _build.require_cuda("window_attention", q)
+    per_sm = _stacked_bwd_per_sm(hc, q.device.index or 0)
     q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
-        q, k, v, bias, mask, heads, heads // hc)
+        q, k, v, bias, mask, heads, heads // hc, per_sm)
     do = do.to(torch.bfloat16).contiguous()
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     part = torch.empty((-(-nB // wpc), heads, WINDOW_TOKENS, WINDOW_TOKENS),
@@ -178,8 +195,7 @@ def window_attention_stacked_bwd(q, k, v, bias, mask, do, heads: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), nB, heads, hc, nW, mask_rows,
-        wpc, sw, sn, do.stride(0), do.stride(1), 1.0 / math.sqrt(HEAD_DIM),
-        _build.stream_handle(q),
+        wpc, sw, sn, 1.0 / math.sqrt(HEAD_DIM), _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "stacked window attention backward")
     _build.LAUNCHES["window_attention_stacked_bwd"] += 1

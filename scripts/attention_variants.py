@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Time variants of the Hopper attention kernels K1, K2, K4 and K6 on one GPU.
+"""Time variants of the Hopper kernels K1, K2, K4, K5, K6 and K10 on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python scripts/attention_variants.py --kernels K1,K6 \\
-        "ATTN_FWD_KEYS=128" "ATTN_FWD_KEYS=64" "DKV_WGS=2" "DKV_WGS=1"
+    python scripts/attention_variants.py --kernels K5,K10 \\
+        "DQ_KEYS=64" "DQ_KEYS=128 STACKED_BWD_HEADS=2"
 
 Each argument is one variant: overrides of the ``constexpr int`` tile
 constants in ``dinomc_tpu_torch/csrc/*.cu`` (``ATTN_FWD_KEYS``,
 ``ATTN_FWD_STAGES`` for K1; ``BWD_WGS``, ``BWD_STAGES`` for K2; ``FWD_WGS``,
-``FWD_STAGES`` for K4; ``DKV_WGS``, ``DKV_STAGES`` for K6; ...). Each
-variant runs in a process of its own that copies ``csrc/`` to a temporary
-directory, rewrites the constants there, builds that library and, on
-chip_smoke.py's shapes, checks each kernel of ``--kernels``
-(default all four) against its plain version with chip_smoke.py's bounds
-and times it as chip_smoke.py does (device time, CUDA events behind a spin
-kernel): K1 and K2 at the five main-path shapes of phase 2, K4 and K6 at
-the first three of phase 5; K2 and K6 also bit-identical on a repeated
+``FWD_STAGES`` for K4; ``DQ_WGS``, ``DQ_KEYS``, ``DQ_STAGES`` for K5;
+``DKV_WGS``, ``DKV_STAGES`` for K6; ``WINS_BWD_STAGES`` for K10; ...), and
+of ``STACKED_BWD_HEADS``, K10's most heads a block
+(``ops/hopper/window_attention.STACKED_HEADS["bwd"]``). Each variant runs in a process of its own that copies
+``csrc/`` to a temporary directory, rewrites the constants there, builds
+that library and, on chip_smoke.py's shapes, checks each kernel of
+``--kernels`` (default all six) against its plain version with
+chip_smoke.py's bounds and times it as chip_smoke.py does (device time,
+CUDA events behind a spin kernel): K1 and K2 at the five main-path shapes of
+phase 2, K4, K5 and K6 at the first three of phase 5, K10 at the four 224
+px stages of phase 7; K2, K5, K6 and K10 also bit-identical on a repeated
 call. The variants run in the order given and then in reverse (A B B A), so
 a drift of the card's speed falls on each alike.
 """
@@ -34,7 +37,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-KERNELS = ("K1", "K2", "K4", "K6")
+KERNELS = ("K1", "K2", "K4", "K5", "K6", "K10")
+HEADS_KNOB = "STACKED_BWD_HEADS"  # a Python constant, not a csrc one
 
 
 def _patched_csrc(variant: str, src: Path, dst: Path) -> None:
@@ -43,6 +47,8 @@ def _patched_csrc(variant: str, src: Path, dst: Path) -> None:
     shutil.copytree(src, dst)
     for item in variant.split():
         name, value = item.split("=")
+        if name == HEADS_KNOB:
+            continue
         pattern = re.compile(rf"constexpr int {name} = [^;]+;")
         hits = 0
         for f in dst.glob("*.cu"):
@@ -102,6 +108,19 @@ def _long(torch, cs, hl, tag, kernels):
                 raise AssertionError(f"{tag} K4 disagrees with its plain version at {what}")
             t = cs._time_ms(torch, lambda: hl.long_attention_fwd(q, k, v, s))
             print(f"{tag} K4 {what}: max|diff| {err:.3e}  ms {t:.4f}", flush=True)
+        if "K5" in kernels:
+            (dq, delta), (dq2, delta2) = (hl.long_attention_dq(q, k, v, o, lse, do, s)
+                                          for _ in range(2))
+            xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            ref = torch.autograd.grad(hl.long_mha_reference(*xs, s), xs[0], do)
+            rel = _rel((dq,), ref)
+            same = torch.equal(dq, dq2) and torch.equal(delta, delta2)
+            if not (rel <= cs.ATTN_GRAD_RTOL and same):
+                raise AssertionError(f"{tag} K5 disagrees with its plain version at {what}")
+            t = cs._time_ms(torch, lambda: hl.long_attention_dq(q, k, v, o, lse, do, s))
+            print(f"{tag} K5 {what}: max rel {rel:.3e}, repeat bit-identical  ms {t:.4f}",
+                  flush=True)
+            del xs, ref
         if "K6" in kernels:
             _, delta = hl.long_attention_dq(q, k, v, o, lse, do, s)
             grads, again = (hl.long_attention_dkv(q, k, v, lse, delta, do, s) for _ in range(2))
@@ -117,6 +136,25 @@ def _long(torch, cs, hl, tag, kernels):
             del xs, ref
 
 
+def _window(torch, cs, wa, tag):
+    for i, (what, nB, heads, side, shift) in enumerate(cs.SWIN_SHAPES[:4]):
+        q, k, v, bias, mask, do = cs._window_inputs(torch, nB, heads, side, shift, 300 + i)
+        grads, again = (wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)
+                        for _ in range(2))
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        ref = torch.autograd.grad(wa.window_attention_reference(*xs, mask, heads), xs, do)
+        rel = _rel(grads, ref)
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        if not (rel <= cs.ATTN_GRAD_RTOL and same):
+            raise AssertionError(f"{tag} K10 disagrees with its plain version at {what}")
+        t = cs._time_ms(torch, lambda: wa.window_attention_stacked_bwd(
+            q, k, v, bias, mask, do, heads))
+        hc = wa.head_chunk(heads, wa.STACKED_HEADS["bwd"])
+        print(f"{tag} K10 {what} ({hc} heads a block): max rel {rel:.3e}, repeat "
+              f"bit-identical  ms {t:.4f}", flush=True)
+        del xs, ref
+
+
 def _child(variant: str, kernels: list) -> None:
     import torch
 
@@ -124,17 +162,24 @@ def _child(variant: str, kernels: list) -> None:
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.ops.hopper import attention as ha
     from dinomc_tpu_torch.ops.hopper import attention_long as hl
+    from dinomc_tpu_torch.ops.hopper import window_attention as wa
 
     tmp = Path(tempfile.mkdtemp())
     try:
         _patched_csrc(variant, _build.CSRC_DIR, tmp / "csrc")
+        for item in variant.split():
+            name, value = item.split("=")
+            if name == HEADS_KNOB:
+                wa.STACKED_HEADS["bwd"] = int(value)
         _build.CSRC_DIR, _build.BUILD_DIR = tmp / "csrc", tmp / "build"
         _build.library()
         tag = f"[{variant}]"
         if {"K1", "K2"} & set(kernels):
             _short(torch, cs, ha, tag, kernels)
-        if {"K4", "K6"} & set(kernels):
+        if {"K4", "K5", "K6"} & set(kernels):
             _long(torch, cs, hl, tag, kernels)
+        if "K10" in kernels:
+            _window(torch, cs, wa, tag)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -144,7 +189,7 @@ def main() -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("variants", nargs="+")
     p.add_argument("--kernels", default=",".join(KERNELS),
-                   help="comma-separated subset of K1,K2,K4,K6 to check and time")
+                   help=f"comma-separated subset of {','.join(KERNELS)} to check and time")
     p.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args()
     kernels = args.kernels.split(",")

@@ -157,19 +157,43 @@ def test_forward_kernel_at_tile_edges(cuda_device, N, d, layout):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-def _long_grads(device, N, d, B=2, h=3):
-    """K4's o and lse, K5's dq and delta, K6's dk and dv on the strided qkv
-    views, and the plain version's (dq, dk, dv)."""
+def _long_grads(device, N, d, B=2, h=3, layout="strided"):
+    """K4's o and lse and K5's delta on the qkv views (or contiguous copies)
+    as K6's arguments, the arguments of K5, and the plain version's (dq, dk,
+    dv)."""
     gen = torch.Generator(device=device).manual_seed(10 * N + d)
     qkv = torch.randn(B, N, 3, h, d, generator=gen, device=device).bfloat16()
     do = torch.randn(B, N, h, d, generator=gen, device=device).bfloat16()
-    q, k, v = qkv.unbind(2)
+    q, k, v = _split(qkv, layout)
     s = 1.0 / math.sqrt(d)
     o, lse = hlong.long_attention_fwd(q, k, v, s)
-    dq, delta = hlong.long_attention_dq(q, k, v, o, lse, do, s)
+    _, delta = hlong.long_attention_dq(q, k, v, o, lse, do, s)
     xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     ref = torch.autograd.grad(hlong.long_mha_reference(*xs, s), xs, do)
-    return (q, k, v, lse, delta, do, s), ref
+    return (q, k, v, lse, delta, do, s), (q, k, v, o, lse, do, s), ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 127, 128, 129, 1025, 4097])
+def test_dq_kernel_at_tile_edges(cuda_device, N, d, layout):
+    """K5 at lengths on and beside its 64-row query boxes and key tiles, at
+    each head dim (each its own swizzle): dQ within 2e-2 of the plain
+    version's, relative to its largest magnitude (chip_smoke.py's bound);
+    1e-5 absolute beside it for N = 1, where dQ is exactly 0 (the one key's
+    dS is 0). delta is rowsum(dO * O) of K4's bf16 output, the same f32
+    products summed in another order: within 1e-4 relative of the largest."""
+    _, args, (ref_dq, _, _) = _long_grads(cuda_device, N, d, layout=layout)
+    q, k, v, o, lse, do, s = args
+    dq, delta = hlong.long_attention_dq(*args)
+    ref_delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert dq.shape == ref_dq.shape and torch.isfinite(dq.float()).all()
+    err = (dq.float() - ref_dq.float()).abs().max().item()
+    assert err <= 2e-2 * ref_dq.float().abs().max().item() + 1e-5
+    assert delta.shape == ref_delta.shape
+    assert (delta - ref_delta).abs().max().item() <= 1e-4 * ref_delta.abs().max().item() + 1e-6
 
 
 @pytest.mark.cuda
@@ -181,7 +205,7 @@ def test_dkv_kernel_at_tile_edges(cuda_device, N, d):
     plain version's, relative to its largest magnitude (chip_smoke.py's
     bound); 1e-5 absolute beside it for N = 1, where dK is exactly 0 (the
     one key's dS is P (dP - delta) with P = 1 and dP = delta)."""
-    args, (_, ref_dk, ref_dv) = _long_grads(cuda_device, N, d)
+    args, _, (_, ref_dk, ref_dv) = _long_grads(cuda_device, N, d)
     dk, dv = hlong.long_attention_dkv(*args)
     torch.cuda.synchronize()
     for got, ref in ((dk, ref_dk), (dv, ref_dv)):
@@ -193,8 +217,10 @@ def test_dkv_kernel_at_tile_edges(cuda_device, N, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,d", [(4097, 64), (1100, 32), (1030, 16)])
 def test_dkv_kernel_is_deterministic(cuda_device, N, d):
-    """K6 has no atomics: two calls on the same inputs give the same bits."""
-    args, _ = _long_grads(cuda_device, N, d)
-    first, again = hlong.long_attention_dkv(*args), hlong.long_attention_dkv(*args)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    """K5 and K6 have no atomics: two calls on the same inputs give the same
+    bits (K5's dQ and delta, K6's dK and dV)."""
+    args, dq_args, _ = _long_grads(cuda_device, N, d)
+    for kernel, xs in ((hlong.long_attention_dkv, args), (hlong.long_attention_dq, dq_args)):
+        first, again = kernel(*xs), kernel(*xs)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), kernel.__name__
