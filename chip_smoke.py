@@ -32,7 +32,8 @@ script exits non-zero:
    against their plain version on the card, in bf16, at the four stage
    shapes of Swin-T at 224 px (16 images), the 184 px stage-1 shape (shift +
    pad masks), the 84 px stage-4 shape (a pad-only mask) and a ragged small
-   one; every 224 px stage timed as kernel, plain version and
+   one; K8's gradients bit-identical on a repeated call; every 224 px
+   stage timed as kernel, plain version and
    ``F.scaled_dot_product_attention`` with the float mask bias + mask, on
    the device and, apart, with the host's launch cost in;
 8. the pretraining entry point again, for 5 Swin-T steps (``--arch swin_t``,
@@ -41,8 +42,9 @@ script exits non-zero:
 9. the fused MLP K11 against its plain version on the card, in bf16, at the
    DINO step's row counts at ViT-S, at ViT-B and ViT-Ti widths and a ragged
    small M, both GELU forms, its gradients (a plain backward) equal to the
-   plain route's bit for bit; timed at the 224 px globals beside the plain
-   version and the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain;
+   plain route's bit for bit; timed at every ViT-S row count beside the
+   dense ``F.linear``, ``F.gelu``, ``F.linear`` chain and with the host's
+   cost, and at the 224 px globals beside the plain version;
 10. the head-stacked window attention K9 (forward) and K10 (backward) against
    their plain version at phase 7's shapes, K10's gradients bit-identical on
    a repeated call; each 224 px stage timed beside
@@ -70,8 +72,8 @@ script checks that the card was still spinning when the last call was
 queued, and fails if it never was. A ``host_`` time is CUDA
 events around 10 calls issued back to back with no spin kernel, so it also
 holds the host's cost of issuing them where that exceeds the device's
-(phases 2, 5 and 7; K1, K2, K4, K5, K6 and K10 encode their TMA tensor
-maps on the host at every call).
+(phases 2, 5, 7 and 9; K1, K2, K4, K5, K6, K8, K10 and K11 encode their
+TMA tensor maps on the host at every call).
 
 Each kernel's bound is the least time the card could take for the work:
 the larger of the bytes it must move (each input read once, each output
@@ -616,10 +618,14 @@ def phase_window_attention(torch):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
+        # K8 is deterministic (no atomics): a second call gives the same bits
+        same = all(torch.equal(a, b) for a, b in zip(
+            grads, wa.window_attention_bwd(q, k, v, bias, mask, do, heads)))
         print(f"[window attention] {what}: windows={nB} heads={heads} map={side} shift={shift} "
               f"mask={None if mask is None else tuple(mask.shape)}  fwd max|diff| {fwd_err:.3e}  "
-              f"dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}")
-        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL):
+              f"dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}  backward bit-identical on a "
+              f"repeat: {same}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"window attention kernels disagree with their plain version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),
                  "rel": max(worst["rel"], rel)}
@@ -717,18 +723,23 @@ def phase_fused_mlp(torch):
             if not (rel <= MLP_RTOL and same):
                 raise AssertionError(f"fused MLP kernel disagrees with its plain version at {what}")
             worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
-        if i == 0:  # the 224 px globals at ViT-S: kernel, plain, the dense chain, the bound
+        if D == 384:  # the ViT-S rows: kernel beside the dense chain, the bound
             x, w1, b1, w2, b2 = args
-            timing = {
+            t = {
                 "ms": _time_ms(torch, lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2, True)),
-                "plain_ms": _time_ms(torch, lambda: fm.fused_mlp_reference(x, w1, b1, w2, b2, True)),
                 # three PyTorch calls (cuBLAS, an elementwise GELU, cuBLAS): no one
                 # PyTorch call computes this function
                 "library_ms": _time_ms(torch, lambda: F.linear(
                     F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2)),
+                # with the host's cost of issuing (tensor maps encoded per call)
+                "host_ms": _host_ms(torch, lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2, True)),
                 "bound": _bound(2 * (2 * M * D + 2 * D * Fd + Fd + D), 4 * M * D * Fd, BF16_FLOPS),
             }
-            print(f"[fused mlp] {what} times: {_fmt(timing)}")
+            if i == 0:  # the 224 px globals: the plain version too
+                t["plain_ms"] = _time_ms(torch, lambda: fm.fused_mlp_reference(
+                    x, w1, b1, w2, b2, True))
+                timing = t
+            print(f"[fused mlp] {what} times: {_fmt(t)}")
     print(f"[fused mlp] worst: fwd max|diff| {worst_abs:.3e}, rel {worst_rel:.3e} (bound {MLP_RTOL})")
     return worst_abs, timing
 

@@ -16,212 +16,336 @@
 // (21.7 MB, 6.5 us at 3.35 TB/s): bound by operations. The unfused form also
 // writes and reads back the (M, F) hidden activation, 77 MB more.
 //
-// Design: the TPU kernel kept both weight matrices resident in VMEM (2.4 MB
-// at ViT-S); here they are far past the 227 KB of shared memory a block may
-// use. So a block of 8 warps owns a tile of BM rows and keeps its (BM, D) f32
-// output accumulator in registers (BM * D = 24,576 values, 96 a thread, at
-// every width: BM = 128, 64, 32 for D = 192, 384, 768). It walks F in chunks
-// of FC: it stages the chunk's rows of W1 and columns of W2 in shared memory,
-// forms the (BM, FC) chunk of u from the x tile (staged once) with WMMA bf16
-// 16x16x16, adds b1 and applies GELU in f32, rounds to bf16 in shared memory,
-// and adds the chunk's product with W2 into the accumulator. The hidden
-// activation never reaches device memory; the weights are read once per row
-// tile (from L2 after the first tile). Rows past M are zero in the x tile and
-// never written. Loads are synchronous 16-byte loads; cp.async/TMA
-// pipelining and wgmma are later work.
+// Design (hopper_attn.cuh's means): the TPU kernel kept both weight
+// matrices resident in VMEM (2.4 MB at ViT-S); here they are far past the
+// 227 KB of shared memory a block may use, so a block streams them.
+// - A block owns a row tile of 64 * RG rows and walks F in chunks of FC. A
+//   producer warpgroup (one thread issuing) TMA-loads the row tile once, as
+//   D/64 boxes of 64 columns in the 128-byte swizzle (rows past M arrive as
+//   zeros), and streams each chunk's FC rows of W1 and FC columns of W2
+//   (the Linear layout is K-major for both products: no transposed copy)
+//   through a ring of STAGES mbarrier-tracked stages.
+// - RG * CS consumer warpgroups: warpgroup (r, c) owns rows [64r, 64r + 64)
+//   of the tile and output columns [c D/CS, (c + 1) D/CS), an f32
+//   accumulator of 64 x D/CS in registers. For each chunk it forms its FC/CS
+//   columns of u = x W1c^T with wgmma from shared memory (f32 registers),
+//   adds b1 and applies GELU in registers, and rounds to bf16:
+//   - CS = 1: the rounded chunk is packed straight into the register A
+//     operand of acc += h W2c^T (to_a_operand, as P V in the attention
+//     kernels), W2c read K-major from shared memory; u never leaves the
+//     registers.
+//   - CS = 2: the two warpgroups of a row group store their halves of h as
+//     one swizzled bf16 tile (double-buffered by chunk), meet at a named
+//     barrier, and each runs acc += h W2c^T for its half of the columns from
+//     that tile; no product is computed twice.
+// - The epilogue adds b2 in f32, rounds once, stages the warpgroup's output
+//   in its own rows of the row tile (128-byte swizzle) and leaves by TMA
+//   stores that clip rows past M.
+// Registers: at D = 384 one warpgroup's 64 x 384 strip is 192 f32 a thread,
+// plus 16 of u and 8 of the packed chunk at FC = 32. A block of two consumer
+// warpgroups and the producer (384 threads, 168 registers a thread at
+// entry) moves them with setmaxnreg: the producer down to 24, the consumers
+// up to 240. At D = 768 the strip is split over two warpgroups (CS = 2).
+// Weight traffic: every row tile streams both weight matrices (2.36 MB at
+// ViT-S) from L2; 128-row tiles make that 99 x 2.36 = 234 MB of L2 reads a
+// call at M = 12,560, half of what 64-row tiles would read, in one wave of
+// 99 blocks on 132 SMs. TMA multicast of the weights over a cluster is not
+// used. The tile constants are timed against each other by
+// scripts/attention_variants.py --kernels K11 (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper_attn.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
+using namespace hopper;
 
-// Row tile BM and hidden chunk FC by width: BM * D = 24,576 f32
-// accumulators a block, and the two weight chunks within 61 KB each.
-template <int D> struct Tile;
-template <> struct Tile<192> { static constexpr int BM = 128, FC = 64; };
-template <> struct Tile<384> { static constexpr int BM = 64, FC = 64; };
-template <> struct Tile<768> { static constexpr int BM = 32, FC = 32; };
+// The ViT-S width's tile (D = 384): rows a block / 64, column split, hidden
+// chunk and stages. Two row groups of 64 with no split hold the 64 x 384
+// strip in 240 registers; a chunk of 64 would need 240 for the strip and
+// the chunk alone, and a third stage does not fit beside the 96 KB row tile.
+constexpr int MLP384_ROW_GROUPS = 2;
+constexpr int MLP384_COL_SPLIT = 1;
+constexpr int MLP384_CHUNK = 32;
+constexpr int MLP384_STAGES = 2;
 
-template <int D> struct Layout {
-  static constexpr int BM = Tile<D>::BM, FC = Tile<D>::FC;
-  static constexpr int LDX = D + 8;   // bf16 pitch of the x and W1-chunk tiles
-  static constexpr int LDW2 = FC + 8; // bf16 pitch of the W2-chunk tile (D rows)
-  static constexpr int LDU = FC + 4;  // f32 pitch of the u chunk
-  static constexpr int LDH = FC + 8;  // bf16 pitch of the GELU chunk
-  static constexpr int LDE = 16 + 4;  // f32 pitch of a warp's epilogue tile
-  static constexpr size_t X_BYTES = (size_t)BM * LDX * 2;
-  static constexpr size_t W1_BYTES = (size_t)FC * LDX * 2;
-  static constexpr size_t W2_BYTES = (size_t)D * LDW2 * 2;
-  static constexpr size_t U_BYTES = (size_t)BM * LDU * 4;
-  static constexpr size_t H_BYTES = (size_t)BM * LDH * 2;
-  static constexpr size_t E_BYTES = (size_t)NWARPS * 16 * LDE * 4;
-  static constexpr size_t SMEM = X_BYTES + W1_BYTES + W2_BYTES + U_BYTES + H_BYTES + E_BYTES;
+template <int D> struct Cfg;
+template <> struct Cfg<192> { static constexpr int RG = 2, CS = 1, FC = 64, STAGES = 3; };
+template <> struct Cfg<384> {
+  static constexpr int RG = MLP384_ROW_GROUPS, CS = MLP384_COL_SPLIT, FC = MLP384_CHUNK,
+                       STAGES = MLP384_STAGES;
+};
+template <> struct Cfg<768> { static constexpr int RG = 1, CS = 2, FC = 32, STAGES = 1; };
+
+// The hidden chunk's bf16 tiles a row group shares when its columns are
+// split (CS = 2); nothing otherwise.
+template <int RG, int FC, bool SHARED> struct HiddenTiles {
+  alignas(1024) bf16 h[2][RG][64 * FC];
+};
+template <int RG, int FC> struct HiddenTiles<RG, FC, false> {};
+
+template <int D, int RG, int CS, int FC, int STAGES> struct MlpSmem {
+  alignas(1024) bf16 x[D / 64][64 * RG * 64];   // row tile: D/64 boxes of (64 RG rows, 64 cols)
+  alignas(1024) bf16 w1[STAGES][D / 64][FC * 64];  // W1's chunk rows: D/64 boxes of (FC, 64)
+  alignas(1024) bf16 w2[STAGES][D * FC];           // W2's chunk columns: (D rows, FC cols)
+  HiddenTiles<RG, FC, (CS > 1)> hid;
+  uint64_t full[STAGES], empty[STAGES], x_full;
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBCol;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+template <int D, int RG, int CS, int FC, int STAGES> struct Mlp {
+  static constexpr int NWG = RG * CS;              // consumer warpgroups
+  static constexpr int THREADS = 128 * (NWG + 1);  // and the producer's
+  static constexpr int BM = 64 * RG;               // rows a block
+  static constexpr int DW = D / CS;                // output columns a consumer
+  static constexpr int FW = FC / CS;               // hidden columns of a chunk a consumer forms
+  static constexpr int NP = DW / 192;              // its m64n192 accumulators
+  static constexpr int KB = D / 64;                // 64-column boxes of a row
+  // Registers a thread: the launch bound's at entry; setmaxnreg then gives
+  // the producer 24 and the consumers what that frees, at most 240.
+  static constexpr int ENTRY = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int SPARE = (ENTRY * THREADS - PRODUCER_REGS * 128) / (128 * NWG) / 8 * 8;
+  static constexpr int CONSUMER_REGS = SPARE > 240 ? 240 : SPARE;
+  using Smem = MlpSmem<D, RG, CS, FC, STAGES>;
+  static constexpr size_t SMEM = sizeof(Smem) + 1024;
+  static_assert(D % 64 == 0 && DW % 192 == 0, "D/CS a multiple of 192");
+  static_assert(FW == 16 || FW == 32 || FW == 64 || FW == 128, "FC/CS in 16..128");
+  static_assert(FC == 16 || FC == 32 || FC == 64, "FC in 16..64 (a swizzled W2 row)");
+  static_assert(CS == 1 || CS == 2, "column split 1 or 2");
+  static_assert(NWG >= 2, "setmaxnreg moves registers from the producer to consumers");
+  static_assert(1 + RG + NWG <= 16, "named barriers");
+};
 
-__device__ __forceinline__ float gelu(float u, int approx) {
-  if (approx) {
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool APPROX>
+__device__ __forceinline__ float gelu(float u) {
+  if constexpr (APPROX) {
     const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * u * (1.f + tanhf(k * (u + 0.044715f * u * u * u)));
-  }
-  return 0.5f * u * (1.f + erff(u * 0.7071067811865476f));
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ out, int M, int F,
-                 int approx) {
-  typedef Layout<D> L;
-  constexpr int BM = L::BM, FC = L::FC, LDX = L::LDX, LDW2 = L::LDW2, LDU = L::LDU,
-                LDH = L::LDH, LDE = L::LDE;
-  constexpr int RS = BM / 16;          // row strips of the tile
-  constexpr int WPS = NWARPS / RS;     // warps a row strip
-  constexpr int CT = D / 16 / WPS;     // output column tiles a warp
-  constexpr int HT = RS * (FC / 16);   // u tiles of a chunk
-  static_assert(RS * WPS == NWARPS && CT * WPS * 16 == D, "tile split");
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(smem);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + L::X_BYTES);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + L::X_BYTES + L::W1_BYTES);
-  float* Us = reinterpret_cast<float*>(smem + L::X_BYTES + L::W1_BYTES + L::W2_BYTES);
-  bf16* Hs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Us) + L::U_BYTES);
-  float* Es = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Hs) + L::H_BYTES);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int m0 = blockIdx.x * BM;
-  const int rs = warp % RS, c0 = (warp / RS) * CT;  // this warp's row strip, first column tile
-
-  for (int i = threadIdx.x; i < BM * (D / 8); i += NTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < M) val = *reinterpret_cast<const uint4*>(x + (long long)(m0 + r) * D + c);
-    *reinterpret_cast<uint4*>(Xs + r * LDX + c) = val;
-  }
-
-  FragC acc[CT];
-#pragma unroll
-  for (int j = 0; j < CT; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    __syncthreads();  // the previous chunk's W1s, W2s and Hs are no longer read
-    for (int i = threadIdx.x; i < FC * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(W1s + r * LDX + c) =
-          *reinterpret_cast<const uint4*>(w1 + (long long)(f0 + r) * D + c);
-    }
-    for (int i = threadIdx.x; i < D * (FC / 8); i += NTHREADS) {
-      const int r = i / (FC / 8), c = (i % (FC / 8)) * 8;
-      *reinterpret_cast<uint4*>(W2s + r * LDW2 + c) =
-          *reinterpret_cast<const uint4*>(w2 + (long long)r * F + f0 + c);
-    }
-    __syncthreads();
-
-    // u chunk = x W1[f0:f0+FC]^T, f32
-    for (int t = warp; t < HT; t += NWARPS) {
-      const int tr = t / (FC / 16), tc = t % (FC / 16);
-      FragC u;
-      wmma::fill_fragment(u, 0.f);
-#pragma unroll 4
-      for (int kt = 0; kt < D / 16; ++kt) {
-        FragA a;
-        FragBCol b;
-        wmma::load_matrix_sync(a, Xs + tr * 16 * LDX + kt * 16, LDX);
-        wmma::load_matrix_sync(b, W1s + tc * 16 * LDX + kt * 16, LDX);
-        wmma::mma_sync(u, a, b, u);
-      }
-      wmma::store_matrix_sync(Us + tr * 16 * LDU + tc * 16, u, LDU, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // h = GELU(u + b1) in f32, rounded to bf16
-    for (int i = threadIdx.x; i < BM * FC; i += NTHREADS) {
-      const int r = i / FC, c = i % FC;
-      const float u = Us[r * LDU + c] + __bfloat162float(b1[f0 + c]);
-      Hs[r * LDH + c] = __float2bfloat16(gelu(u, approx));
-    }
-    __syncthreads();
-
-    // acc += h W2[:, f0:f0+FC]^T
-#pragma unroll
-    for (int kt = 0; kt < FC / 16; ++kt) {
-      FragA a;
-      wmma::load_matrix_sync(a, Hs + rs * 16 * LDH + kt * 16, LDH);
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        FragBCol b;
-        wmma::load_matrix_sync(b, W2s + (c0 + j) * 16 * LDW2 + kt * 16, LDW2);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-
-  // Epilogue, per warp: each 16x16 tile through shared memory, + b2 in f32,
-  // one 16-byte store of 8 bf16 a lane.
-  float* E = Es + warp * 16 * LDE;
-  const int er = lane / 2, ec = (lane % 2) * 8;
-  const int row = m0 + rs * 16 + er;
-#pragma unroll
-  for (int j = 0; j < CT; ++j) {
-    wmma::store_matrix_sync(E, acc[j], LDE, wmma::mem_row_major);
-    __syncwarp();
-    const int col = (c0 + j) * 16 + ec;
-    if (row < M) {
-      uint32_t w[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float a0 = E[er * LDE + ec + 2 * q] + __bfloat162float(b2[col + 2 * q]);
-        const float a1 = E[er * LDE + ec + 2 * q + 1] + __bfloat162float(b2[col + 2 * q + 1]);
-        __nv_bfloat162 p = __floats2bfloat162_rn(a0, a1);
-        w[q] = *reinterpret_cast<uint32_t*>(&p);
-      }
-      *reinterpret_cast<uint4*>(out + (long long)row * D + col) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-    __syncwarp();
+    return 0.5f * u * (1.f + tanh_approx(k * fmaf(0.044715f * u, u * u, u)));
+  } else {
+    return 0.5f * u * (1.f + erff(u * 0.7071067811865476f));
   }
 }
 
-template <int D>
+__device__ __forceinline__ float2 bf16_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <int D, int RG, int CS, int FC, int STAGES, bool APPROX>
+__global__ void __launch_bounds__(Mlp<D, RG, CS, FC, STAGES>::THREADS, 1)
+fused_mlp_kernel(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w1_map,
+                 const __grid_constant__ CUtensorMap w2_map,
+                 const __grid_constant__ CUtensorMap out_map, const bf16* __restrict__ b1,
+                 const bf16* __restrict__ b2, int F) {
+  using C = Mlp<D, RG, CS, FC, STAGES>;
+  constexpr int FW = C::FW, DW = C::DW, NP = C::NP;
+  extern __shared__ unsigned char smem_raw[];
+  typename C::Smem& sm = aligned_smem<typename C::Smem>(smem_raw);
+  const int m0 = blockIdx.x * C::BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4, wl = warp % 4;
+  const int nchunks = F / FC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 4 * C::NWG);  // one arrival per consumer warp
+    }
+    mbar_init(&sm.x_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == C::NWG) {  // producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (wl == 0 && lane == 0) {
+      mbar_expect_tx(&sm.x_full, C::BM * D * 2);
+      for (int j = 0; j < C::KB; ++j) tma_load_2d(sm.x[j], &x_map, &sm.x_full, m0, 64 * j);
+      for (int t = 0; t < nchunks; ++t) {
+        const int s = t % STAGES, f0 = t * FC;
+        mbar_wait(&sm.empty[s], ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * FC * D * 2);
+        for (int j = 0; j < C::KB; ++j) {
+          tma_load_2d(sm.w1[s][j], &w1_map, &sm.full[s], f0, 64 * j);
+          tma_load_2d(sm.w2[s] + j * 64 * FC, &w2_map, &sm.full[s], 64 * j, f0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup (r, c)
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int r = wg / CS, c = wg % CS;
+  constexpr uint64_t X_BOX = (uint64_t)(C::BM * 64 * 2) >> 4;  // descriptor units a box
+  constexpr uint64_t W1_BOX = (uint64_t)(FC * 64 * 2) >> 4;
+  constexpr uint64_t W2_PART = (uint64_t)(192 * FC * 2) >> 4;  // 192 rows of W2's chunk
+  const uint64_t x_desc = make_desc<64>(sm.x[0] + r * 64 * 64);
+  float acc[NP][96];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) zero(acc[p]);
+  mbar_wait(&sm.x_full, 0);
+
+  for (int t = 0; t < nchunks; ++t) {
+    const int s = t % STAGES, f0 = t * FC;
+    mbar_wait(&sm.full[s], (t / STAGES) & 1);
+    const uint64_t w1_desc = make_desc<64>(sm.w1[s][0] + c * FW * 64);
+    const uint64_t w2_desc = make_desc<FC>(sm.w2[s] + c * DW * FC);
+
+    // this warpgroup's FW columns of the chunk of u = x W1^T, f32
+    float u[FW / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<FW>(u, x_desc + (kk / 4) * X_BOX + 2 * (kk % 4),
+                   w1_desc + (kk / 4) * W1_BOX + 2 * (kk % 4), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(u);
+
+    // + b1 and GELU in f32
+    const bf16* b1c = b1 + f0 + c * FW;
+#pragma unroll
+    for (int i = 0; i < FW / 2; i += 2) {
+      const float2 bb = bf16_pair(b1c + acc_col(lane, i));
+      u[i] = gelu<APPROX>(u[i] + bb.x);
+      u[i + 1] = gelu<APPROX>(u[i + 1] + bb.y);
+    }
+
+    // acc += h W2c^T, h = the chunk rounded to bf16
+    if constexpr (CS == 1) {
+      uint32_t ha[FC / 16][4];  // the register A operand of each 16-deep slice
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk) to_a_operand(ha[kk], u, kk);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p) wgmma_rs_k_n192(acc[p], ha[kk], w2_desc + p * W2_PART + 2 * kk);
+    } else {
+      bf16* ht = sm.hid.h[t % 2][r];
+      unsigned char* hb = reinterpret_cast<unsigned char*>(ht);
+#pragma unroll
+      for (int i = 0; i < FW / 2; i += 2) {
+        const int row = acc_row(wl, lane, i), col = c * FW + acc_col(lane, i);
+        *reinterpret_cast<uint32_t*>(hb + swz<FC>(row * FC * 2 + col * 2)) =
+            pack_bf16(u[i], u[i + 1]);
+      }
+      fence_async_smem();
+      named_sync(1 + r, 256);  // both halves of the row group's chunk are stored
+      const uint64_t h_desc = make_desc<FC>(ht);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FC / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+          wgmma_ss_n192(acc[p], h_desc + 2 * kk, w2_desc + p * W2_PART + 2 * kk, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+  // Epilogue: + b2 in f32, rounded once, staged in the warpgroup's own rows
+  // of the row tile (a split row group first waits until its partner has
+  // read them for the last time), then TMA stores that clip rows past M.
+  if constexpr (CS > 1) named_sync(1 + r, 256);
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+#pragma unroll
+    for (int i = 0; i < 96; i += 2) {
+      const int row = acc_row(wl, lane, i), col = c * DW + p * 192 + acc_col(lane, i);
+      const float2 bb = bf16_pair(b2 + col);
+      unsigned char* box = reinterpret_cast<unsigned char*>(sm.x[col / 64] + r * 64 * 64);
+      *reinterpret_cast<uint32_t*>(box + swz<64>(row * 128 + (col % 64) * 2)) =
+          pack_bf16(acc[p][i] + bb.x, acc[p][i + 1] + bb.y);
+    }
+  }
+  fence_async_smem();
+  named_sync(1 + RG + wg, 128);
+  if (wl == 0 && lane == 0) {
+    for (int b = c * DW / 64; b < (c + 1) * DW / 64; ++b)
+      tma_store_2d(&out_map, sm.x[b] + r * 64 * 64, m0 + r * 64, 64 * b);
+    tma_store_wait();
+  }
+}
+
+template <int D, bool APPROX>
 int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           void* out, int M, int F, int approx, cudaStream_t stream) {
-  const size_t smem = Layout<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           void* out, int M, int F, cudaStream_t stream) {
+  using G = Cfg<D>;
+  using C = Mlp<D, G::RG, G::CS, G::FC, G::STAGES>;
+  if (F % G::FC != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, w1_map, w2_map, out_map;
+  CUresult res = make_map_2d(&x_map, x, M, D, D, C::BM, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res == CUDA_SUCCESS)
+    res = make_map_2d(&w1_map, w1, F, D, D, G::FC, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res == CUDA_SUCCESS) res = make_map_2d(&w2_map, w2, D, F, F, 64, G::FC, Swizzle<G::FC>::TMA);
+  if (res == CUDA_SUCCESS)
+    res = make_map_2d(&out_map, out, M, D, D, 64, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (res != CUDA_SUCCESS) return MAP_ERROR + (int)res;
+  auto kernel = fused_mlp_kernel<D, G::RG, G::CS, G::FC, G::STAGES, APPROX>;
+  static bool allowed = false;
+  cudaError_t err = allow_smem(kernel, C::SMEM, allowed);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (M + Tile<D>::BM - 1) / Tile<D>::BM;
-  fused_mlp_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)w1, (const bf16*)b1, (const bf16*)w2, (const bf16*)b2,
-      (bf16*)out, M, F, approx);
+  // setmaxnreg hands out the registers the block holds at entry: with
+  // fewer than ENTRY a thread, the consumers' request would wait forever
+  static int regs = -1;
+  if (regs < 0) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    regs = attr.numRegs;
+  }
+  if (regs != C::ENTRY) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (M + C::BM - 1) / C::BM;
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(x_map, w1_map, w2_map, out_map,
+                                                 (const bf16*)b1, (const bf16*)b2, F);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_gelu(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                void* out, int M, int F, int approx, cudaStream_t stream) {
+  return approx ? launch<D, true>(x, w1, b1, w2, b2, out, M, F, stream)
+                : launch<D, false>(x, w1, b1, w2, b2, out, M, F, stream);
 }
 
 }  // namespace
 
 // x: (M, D) bf16 contiguous; w1: (F, D), b1: (F,), w2: (D, F), b2: (D,),
-// all bf16 contiguous; out: (M, D) bf16 contiguous. D is 192, 384 or 768 and
-// F a multiple of the width's chunk (64, 64, 32); M > 0 and any.
+// all bf16 contiguous; out: (M, D) bf16 contiguous; every pointer 16-byte
+// aligned. D is 192, 384 or 768 and F a multiple of the width's chunk (64,
+// MLP384_CHUNK, 32); M > 0 and any. `device`: the CUDA device of the
+// tensors and the stream.
 extern "C" int dinomc_fused_mlp(const void* x, const void* w1, const void* b1,
                                 const void* w2, const void* b2, void* out, int M, int D,
-                                int F, int approx, void* stream) {
+                                int F, int approx, void* stream, int device) {
+  const cudaError_t bound = cudaSetDevice(device);  // see hopper::make_map
+  if (bound != cudaSuccess) return (int)bound;
   cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    case 192: return launch<192>(x, w1, b1, w2, b2, out, M, F, approx, st);
-    case 384: return launch<384>(x, w1, b1, w2, b2, out, M, F, approx, st);
-    case 768: return launch<768>(x, w1, b1, w2, b2, out, M, F, approx, st);
+    case 192: return launch_gelu<192>(x, w1, b1, w2, b2, out, M, F, approx, st);
+    case 384: return launch_gelu<384>(x, w1, b1, w2, b2, out, M, F, approx, st);
+    case 768: return launch_gelu<768>(x, w1, b1, w2, b2, out, M, F, approx, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,36 +1,39 @@
-// Device code shared by the Hopper attention kernels: the short-sequence
+// Device code shared by the Hopper kernels: the short-sequence attention
 // forward K1 and backward K2 (attention.cu), the long-sequence forward K4,
-// dQ K5 and dK/dV K6 (attention_long.cu), and, through hopper_window.cuh,
-// the window-attention backward K10 (window_attention_stacked.cu).
+// dQ K5 and dK/dV K6 (attention_long.cu), through hopper_window.cuh the
+// window-attention backwards K8 (window_attention.cu) and K10
+// (window_attention_stacked.cu), and the fused MLP K11 (fused_mlp.cu).
 //
-// - TMA: a tensor map per (B, N, h, d) bf16 tensor, encoded on the host per
-//   call and passed to the kernel as a __grid_constant__ parameter; loads of
-//   64-row boxes into shared memory (rows past N arrive as zeros) and stores
-//   that clip rows past N.
+// - TMA: a tensor map per (B, N, h, d) bf16 tensor, or per (rows, cols)
+//   matrix (make_map_2d, K11), encoded on the host per call and passed to
+//   the kernel as a __grid_constant__ parameter; loads of boxes into shared
+//   memory (rows past the tensor arrive as zeros) and stores that clip them.
 // - An mbarrier ring: "full" barriers that complete when a stage's bytes
 //   have landed, "empty" barriers that the consumer warps arrive on when
 //   they are done with a stage.
 // - wgmma: shared-memory descriptors, fences, commit/wait, and the m64nNk16
 //   bf16 -> f32 instructions with both operands in shared memory (the
-//   score-like products, K-major; or both MN-major, reading a stored tile
-//   transposed) or A in registers and B MN-major (the products that
-//   accumulate over keys or queries).
+//   score-like products and K11's first product, K-major; or both MN-major,
+//   reading a stored tile transposed) or A in registers and B MN-major (the
+//   products that accumulate over keys or queries) or K-major (K11's second
+//   product, against W2's rows).
 // - The accumulator layout: thread t of warp w in a warpgroup holds, for
 //   each 8-column slice j, rows 16w + t/4 (+8) and columns 8j + 2(t%4)
 //   (+1), registers 4j + {0, 1} (row) and 4j + {2, 3} (row + 8). Two
 //   adjacent slices, rounded to bf16 and packed, are exactly the register
-//   A operand of the next product's 16-deep k-slice, so scores never go
-//   through shared memory.
+//   A operand of the next product's 16-deep k-slice, so scores (and K11's
+//   hidden activation) never go through shared memory.
 //
 // - The masks of packed crops (key_live, live_range, edge_tile), the dK/dV
 //   block (dkv_block) that K2's second launch and K6 both run, and the dQ
 //   block (dq_block) that K2's first launch and K5 both run: K6 and K5 are
 //   the case boundary = 0, with their own tile constants.
 //
-// Every tile is d bf16 values a row, so a row is 2d bytes (128, 64 or 32)
-// and the swizzle is that width: TMA writes it, the wgmma descriptors read
-// it, and the epilogue writes it by hand (swz below); tiles start on 1024
-// bytes so the pattern is the same whatever the tile's address.
+// Every attention tile is d bf16 values a row, so a row is 2d bytes (128,
+// 64 or 32) and the swizzle is that width: TMA writes it, the wgmma
+// descriptors read it, and the epilogue writes it by hand (swz below);
+// tiles start on 1024 bytes so the pattern is the same whatever the tile's
+// address.
 
 #pragma once
 
@@ -106,6 +109,24 @@ inline CUresult make_map(CUtensorMap* map, const void* base, int B, int N, int H
 template <int D>
 inline CUresult make_map(CUtensorMap* map, const void* base, int B, int N, int H) {
   return make_map<D>(map, base, B, N, H, (long long)N * H * D, (long long)H * D, D);
+}
+
+// Map of a (rows, cols) bf16 matrix with a row stride of `ld` elements
+// and unit stride along a row, in boxes of (box_rows, box_cols) with
+// `swizzle` (box_cols * 2 bytes must not exceed the swizzle's width). Rows
+// past `rows` load as zeros, and stores clip them. The caller has bound its
+// device (see make_map).
+inline CUresult make_map_2d(CUtensorMap* map, const void* base, int rows, int cols, long long ld,
+                            int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // Raise a kernel's dynamic shared memory limit, once per kernel.
@@ -192,6 +213,29 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       : "memory");
 }
 
+// One box of a make_map_2d map, its first element at (row, col), into
+// `dst`; completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int row, int col) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Store one box of a make_map_2d map from shared memory; rows past the
+// matrix are clipped. The caller fences (fence_async_smem) and syncs the
+// writers first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int row,
+                                             int col) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(col), "r"(row)
+      : "memory");
+}
+
 // Wait until this thread's TMA stores have completed.
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
@@ -206,6 +250,18 @@ __device__ __forceinline__ void fence_async_smem() {
 // Barrier `id` (1-15) over `threads` threads, e.g. one warpgroup.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Move this warpgroup's registers a thread to N (a multiple of 8, 24 to
+// 256), down (a producer that needs few) or up (consumers that take what it
+// gave back). Every thread of the warpgroup executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // Byte offset of byte `off` of a tile written with D's swizzle.
@@ -331,12 +387,75 @@ __device__ __forceinline__ void wgmma_ss_tt_n32(float (&d)[16], uint64_t da, uin
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem); N = 64 or 128.
+// d (64 x 16, f32) (+)= A (64 x 16, smem) * B (16 x 16, smem); both K-major.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 32, f32) (+)= A (64 x 16, smem) * B (16 x 32, smem); both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 192, f32) (+)= A (64 x 16, smem) * B (16 x 192, smem); both K-major.
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 192, f32) += A (64 x 16, registers) * B (16 x 192, smem, K-major).
+__device__ __forceinline__ void wgmma_rs_k_n192(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N, f32) (+)= A (64 x 16, smem) * B (16 x N, smem), both K-major.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 128, "64 or 128 columns");
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
-  else wgmma_ss_n128(d, da, db, accumulate);
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128 || N == 192, "16 to 192 columns");
+  if constexpr (N == 16) wgmma_ss_n16(d, da, db, accumulate);
+  else if constexpr (N == 32) wgmma_ss_n32(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else if constexpr (N == 128) wgmma_ss_n128(d, da, db, accumulate);
+  else wgmma_ss_n192(d, da, db, accumulate);
 }
 
 // d (64 x D) += A (64 x 16, registers) * B (16 x D, smem, MN-major).

@@ -1,6 +1,6 @@
-// Device code of the Hopper window-attention backward: K10
-// (window_attention_stacked.cu) runs window_bwd_block with a chunk of HC
-// heads a block; HC = 1 is the shape of K8's one head a block.
+// Device code of the Hopper window-attention backward: K8
+// (window_attention.cu) runs window_bwd_block with one head a block, K10
+// (window_attention_stacked.cu) with a chunk of HC heads a block.
 //
 // What it computes, for every 49-token window w and head h (head_dim 32):
 // P = softmax(Q K^T * scale + bias[h] + mask[w mod nW]) recomputed exactly
@@ -63,8 +63,12 @@ template <int HC, int STAGES> struct WinBwdSmem {
 
 // The backward of the block's HC heads [blockIdx.y * HC, + HC) over its
 // windows [blockIdx.x * wpc, + wpc) (fewer in the last block). Maps: q, k, v
-// (the (nB, 49, H, 32) views the forward read), dout, dq, dk, dv
-// (contiguous), all make_map<32> with N = 49. bias: (H, 49, 49) f32; mask:
+// (the (nB, 49, H, 32) views the forward read), dout, dq, dk, dv, all
+// make_map<32> with N = 49; head h of k, v, dk and dv is head h + k_head,
+// h + v_head, h + dk_head, h + dv_head of its map, so one map over a (nB,
+// 49, 3H, 32) qkv tensor serves q, k and v (offsets H and 2H; 0 for maps of
+// their own), and one over a (nB, 49, 3H, 32) buffer dq, dk and dv. bias:
+// (H, 49, 49) f32; mask:
 // null or (nW, mask_rows, 49) f32, window w reads mask[w mod nW];
 // dbias_part: (gridDim.x, H, 49, 49) f32, this block's sums. Launch with
 // 128 * HC + 32 threads and sizeof(WinBwdSmem) + 1024 bytes of dynamic
@@ -74,7 +78,8 @@ __device__ __forceinline__ void window_bwd_block(
     const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map,
     const CUtensorMap* do_map, const CUtensorMap* dq_map, const CUtensorMap* dk_map,
     const CUtensorMap* dv_map, const float* __restrict__ bias, const float* __restrict__ mask,
-    float* __restrict__ dbias_part, int nB, int H, int nW, int mask_rows, int wpc, float scale) {
+    float* __restrict__ dbias_part, int nB, int H, int nW, int mask_rows, int wpc, int k_head,
+    int v_head, int dk_head, int dv_head, float scale) {
   constexpr float log2e = 1.4426950408889634f;
   constexpr int D = WIN_HD;
   constexpr uint32_t BOX = BOX_ROWS * D * 2;  // bytes of one box
@@ -110,8 +115,8 @@ __device__ __forceinline__ void window_bwd_block(
 #pragma unroll
         for (int g = 0; g < HC; ++g) {
           tma_load(sm.q[s][g], q_map, &sm.full[s], h0 + g, 0, w);
-          tma_load(sm.k[s][g], k_map, &sm.full[s], h0 + g, 0, w);
-          tma_load(sm.v[s][g], v_map, &sm.full[s], h0 + g, 0, w);
+          tma_load(sm.k[s][g], k_map, &sm.full[s], k_head + h0 + g, 0, w);
+          tma_load(sm.v[s][g], v_map, &sm.full[s], v_head + h0 + g, 0, w);
           tma_load(sm.dout[s][g], do_map, &sm.full[s], h0 + g, 0, w);
         }
       } else {
@@ -235,8 +240,8 @@ __device__ __forceinline__ void window_bwd_block(
     named_sync(1 + g, 128);
     if (wl == 0 && lane == 0) {
       tma_store(dq_map, q_tile, h, 0, w);
-      tma_store(dk_map, k_tile, h, 0, w);
-      tma_store(dv_map, v_tile, h, 0, w);
+      tma_store(dk_map, k_tile, dk_head + h, 0, w);
+      tma_store(dv_map, v_tile, dv_head + h, 0, w);
       asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // the boxes are read
       mbar_arrive(&sm.empty[s]);

@@ -275,7 +275,7 @@ wins_bwd_kernel(const __grid_constant__ CUtensorMap q_map,
                 int nW, int mask_rows, int wpc, float scale) {
   hopper::window_bwd_block<HC, WINS_BWD_STAGES>(&q_map, &k_map, &v_map, &do_map, &dq_map,
                                                 &dk_map, &dv_map, bias, mask, dbias_part, nB, H,
-                                                nW, mask_rows, wpc, scale);
+                                                nW, mask_rows, wpc, 0, 0, 0, 0, scale);
 }
 
 // dbias[i] = sum over x of part[x, i], x in order: deterministic.

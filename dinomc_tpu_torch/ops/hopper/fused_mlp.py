@@ -26,8 +26,8 @@ import torch.nn.functional as F
 from dinomc_tpu_torch.ops.hopper import _build
 
 # Embedding width -> the hidden chunk the kernel walks F in (csrc/fused_mlp.cu
-# ``Tile``): the ViT-Ti/S/B widths.
-HIDDEN_CHUNK = {192: 64, 384: 64, 768: 32}
+# ``Cfg``): the ViT-Ti/S/B widths.
+HIDDEN_CHUNK = {192: 64, 384: 32, 768: 32}
 
 
 def _gelu_form(approx: bool) -> str:
@@ -60,13 +60,16 @@ def fused_mlp_fwd(x, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
     if (w1.shape, b1.shape, w2.shape, b2.shape) != ((hidden, D), (hidden,), (D, hidden), (D,)):
         raise ValueError(f"{name}: want W1 (F, D), b1 (F,), W2 (D, F), b2 (D,) for D={D}, "
                          f"F={hidden}; got {[tuple(t.shape) for t in (w1, b1, w2, b2)]}")
-    x, w1, b1, w2, b2 = (t.contiguous() for t in (x, w1, b1, w2, b2))
+    # TMA reads rows from 16-byte aligned bases
+    x, w1, b1, w2, b2 = (t.contiguous() if t.data_ptr() % 16 == 0
+                         else t.clone(memory_format=torch.contiguous_format)
+                         for t in (x, w1, b1, w2, b2))
     out = torch.empty_like(x)
     if M == 0:
         return out
     err = _build.library().dinomc_fused_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), M, D, hidden, int(approx), _build.stream_handle(x),
+        out.data_ptr(), M, D, hidden, int(approx), _build.stream_handle(x), x.device.index,
     )
     _build.check(err, "fused MLP")
     _build.LAUNCHES["fused_mlp"] += 1

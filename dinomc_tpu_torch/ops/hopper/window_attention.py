@@ -12,10 +12,12 @@ a block-diagonal mask; the CUDA kernels compute one window at a time, so
 nothing of that packing (``pick_group``, the rank-49 augmentation, the
 stacked variant's block-stacked K'/V' operands) is kept. K7/K8 give a block
 one head over many windows; K9/K10 give a block a chunk of heads of each of
-its windows, one warp a head (K9) or one warpgroup a head (K10, on wgmma
-and TMA, ``csrc/hopper_window.cuh``). The backward's dbias comes from
-per-block partials summed in a fixed order (no atomics) and stays in f32;
-the TPU kernels round dS to bf16 before summing it.
+its windows, one warp a head (K9) or one warpgroup a head (K10). K8 and K10
+run one backward body on wgmma and TMA (``csrc/hopper_window.cuh``), K8
+with one head a block; both size their grid to one wave of resident blocks.
+The backward's dbias comes from per-block partials summed in a fixed order
+(no atomics) and stays in f32; the TPU kernels round dS to bf16 before
+summing it.
 
 ``window_attention`` launches the kernels of its ``variant`` for CUDA
 tensors (bf16 q/k/v only) and runs ``window_attention_reference`` for CPU
@@ -36,7 +38,7 @@ from dinomc_tpu_torch.ops.hopper import _build
 
 WINDOW_TOKENS = 49  # a 7 x 7 window
 HEAD_DIM = 32
-BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K7-K9)
+BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K7, K9)
 # Most heads a block of K9 / K10 takes (csrc/window_attention_stacked.cu):
 # K9 holds up to 8, K10 up to 3 in shared memory; K10's is timed against 1
 # and 2 by scripts/attention_variants.py (PERF.md).
@@ -123,12 +125,28 @@ def window_attention_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
     return o
 
 
+@functools.cache
+def _bwd_per_sm(index: int) -> int:
+    """Blocks of K8 that one SM holds at once."""
+    n = _build.library().dinomc_win_attn_bwd_per_sm(index)
+    if n <= 0:
+        raise RuntimeError(f"window attention backward: no block fits an SM (CUDA error {-n})")
+    return n
+
+
 def window_attention_bwd(q, k, v, bias, mask, do, heads: int):
     """K8 (and its fixed-order dbias reduction): returns (dq, dk, dv), each
-    (nB, 49, C) bf16 contiguous, and dbias (heads, 49, 49) f32."""
-    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(q, k, v, bias, mask, heads)
+    (nB, 49, C) bf16, the column slices of one (nB, 49, 3C) buffer, and
+    dbias (heads, 49, 49) f32. The windows are cut into one wave of resident
+    blocks."""
+    _build.require_cuda("window_attention", q)
+    per_sm = _bwd_per_sm(q.device.index or 0)
+    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
+        q, k, v, bias, mask, heads, per_sm=per_sm)
     do = do.to(torch.bfloat16).contiguous()
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    C = q.shape[-1]
+    grads = torch.empty((nB, WINDOW_TOKENS, 3 * C), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grads[..., :C], grads[..., C:2 * C], grads[..., 2 * C:]
     part = torch.empty((-(-nB // wpc), heads, WINDOW_TOKENS, WINDOW_TOKENS),
                        dtype=torch.float32, device=q.device)
     dbias = torch.empty((heads, WINDOW_TOKENS, WINDOW_TOKENS), dtype=torch.float32, device=q.device)
@@ -136,8 +154,8 @@ def window_attention_bwd(q, k, v, bias, mask, do, heads: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), nB, heads, nW, mask_rows,
-        wpc, sw, sn, do.stride(0), do.stride(1), 1.0 / math.sqrt(HEAD_DIM),
-        _build.stream_handle(q),
+        wpc, sw, sn, grads.stride(0), grads.stride(1), 1.0 / math.sqrt(HEAD_DIM),
+        _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "window attention backward")
     _build.LAUNCHES["window_attention_bwd"] += 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the Hopper kernels K1, K2, K4, K5, K6 and K10 on one GPU.
+"""Time variants of the Hopper kernels K1, K2, K4, K5, K6, K8, K10 and K11 on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -10,18 +10,22 @@ Each argument is one variant: overrides of the ``constexpr int`` tile
 constants in ``dinomc_tpu_torch/csrc/*.cu`` (``ATTN_FWD_KEYS``,
 ``ATTN_FWD_STAGES`` for K1; ``BWD_WGS``, ``BWD_STAGES`` for K2; ``FWD_WGS``,
 ``FWD_STAGES`` for K4; ``DQ_WGS``, ``DQ_KEYS``, ``DQ_STAGES`` for K5;
-``DKV_WGS``, ``DKV_STAGES`` for K6; ``WINS_BWD_STAGES`` for K10; ...), and
+``DKV_WGS``, ``DKV_STAGES`` for K6; ``WIN_BWD_STAGES`` for K8;
+``WINS_BWD_STAGES`` for K10; ``MLP384_ROW_GROUPS``, ``MLP384_COL_SPLIT``,
+``MLP384_CHUNK``, ``MLP384_STAGES`` for K11 at the ViT-S width; ...), and
 of ``STACKED_BWD_HEADS``, K10's most heads a block
-(``ops/hopper/window_attention.STACKED_HEADS["bwd"]``). Each variant runs in a process of its own that copies
-``csrc/`` to a temporary directory, rewrites the constants there, builds
-that library and, on chip_smoke.py's shapes, checks each kernel of
-``--kernels`` (default all six) against its plain version with
-chip_smoke.py's bounds and times it as chip_smoke.py does (device time,
-CUDA events behind a spin kernel): K1 and K2 at the five main-path shapes of
-phase 2, K4, K5 and K6 at the first three of phase 5, K10 at the four 224
-px stages of phase 7; K2, K5, K6 and K10 also bit-identical on a repeated
-call. The variants run in the order given and then in reverse (A B B A), so
-a drift of the card's speed falls on each alike.
+(``ops/hopper/window_attention.STACKED_HEADS["bwd"]``). Each variant runs in
+a process of its own that copies ``csrc/`` to a temporary directory,
+rewrites the constants there, builds that library and, on chip_smoke.py's
+shapes, checks each kernel of ``--kernels`` (default all eight) against its
+plain version with chip_smoke.py's bounds and times it as chip_smoke.py
+does (device time, CUDA events behind a spin kernel): K1 and K2 at the five
+main-path shapes of phase 2, K4, K5 and K6 at the first three of phase 5,
+K8 and K10 at the four 224 px stages of phase 7, K11 at the ViT-S rows of
+phase 9 beside the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain; K2,
+K5, K6, K8 and K10 also bit-identical on a repeated call. The variants run
+in the order given and then in reverse (A B B A), so a drift of the card's
+speed falls on each alike.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-KERNELS = ("K1", "K2", "K4", "K5", "K6", "K10")
+KERNELS = ("K1", "K2", "K4", "K5", "K6", "K8", "K10", "K11")
 HEADS_KNOB = "STACKED_BWD_HEADS"  # a Python constant, not a csrc one
 
 
@@ -136,23 +140,43 @@ def _long(torch, cs, hl, tag, kernels):
             del xs, ref
 
 
-def _window(torch, cs, wa, tag):
+def _window(torch, cs, wa, tag, kernels):
+    launchers = [(name, fn) for name, fn in (("K8", wa.window_attention_bwd),
+                                             ("K10", wa.window_attention_stacked_bwd))
+                 if name in kernels]
     for i, (what, nB, heads, side, shift) in enumerate(cs.SWIN_SHAPES[:4]):
         q, k, v, bias, mask, do = cs._window_inputs(torch, nB, heads, side, shift, 300 + i)
-        grads, again = (wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)
-                        for _ in range(2))
         xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
         ref = torch.autograd.grad(wa.window_attention_reference(*xs, mask, heads), xs, do)
-        rel = _rel(grads, ref)
-        same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        if not (rel <= cs.ATTN_GRAD_RTOL and same):
-            raise AssertionError(f"{tag} K10 disagrees with its plain version at {what}")
-        t = cs._time_ms(torch, lambda: wa.window_attention_stacked_bwd(
-            q, k, v, bias, mask, do, heads))
-        hc = wa.head_chunk(heads, wa.STACKED_HEADS["bwd"])
-        print(f"{tag} K10 {what} ({hc} heads a block): max rel {rel:.3e}, repeat "
-              f"bit-identical  ms {t:.4f}", flush=True)
+        for name, bwd in launchers:
+            grads, again = (bwd(q, k, v, bias, mask, do, heads) for _ in range(2))
+            rel = _rel(grads, ref)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            if not (rel <= cs.ATTN_GRAD_RTOL and same):
+                raise AssertionError(f"{tag} {name} disagrees with its plain version at {what}")
+            t = cs._time_ms(torch, lambda: bwd(q, k, v, bias, mask, do, heads))
+            hc = 1 if name == "K8" else wa.head_chunk(heads, wa.STACKED_HEADS["bwd"])
+            print(f"{tag} {name} {what} ({hc} heads a block): max rel {rel:.3e}, repeat "
+                  f"bit-identical  ms {t:.4f}", flush=True)
         del xs, ref
+
+
+def _mlp(torch, cs, fm, tag):
+    F = torch.nn.functional
+    for i, (what, M, D, Fd) in enumerate(cs.MLP_SHAPES):
+        if D != 384:
+            continue
+        (x, w1, b1, w2, b2), _ = cs._mlp_inputs(torch, M, D, Fd, 400 + i)
+        out = fm.fused_mlp_fwd(x, w1, b1, w2, b2, True).float()
+        ref = fm.fused_mlp_reference(x, w1, b1, w2, b2, True).float()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        if not rel <= cs.MLP_RTOL:
+            raise AssertionError(f"{tag} K11 disagrees with its plain version at {what}")
+        t = cs._time_ms(torch, lambda: fm.fused_mlp_fwd(x, w1, b1, w2, b2, True))
+        dense = cs._time_ms(torch, lambda: F.linear(
+            F.gelu(F.linear(x, w1, b1), approximate="tanh"), w2, b2))
+        print(f"{tag} K11 {what}: rel {rel:.3e}  ms {t:.4f} ({4 * M * D * Fd / t / 1e9:.1f} "
+              f"TFLOP/s)  dense chain {dense:.4f}", flush=True)
 
 
 def _child(variant: str, kernels: list) -> None:
@@ -162,6 +186,7 @@ def _child(variant: str, kernels: list) -> None:
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.ops.hopper import attention as ha
     from dinomc_tpu_torch.ops.hopper import attention_long as hl
+    from dinomc_tpu_torch.ops.hopper import fused_mlp as fm
     from dinomc_tpu_torch.ops.hopper import window_attention as wa
 
     tmp = Path(tempfile.mkdtemp())
@@ -178,8 +203,10 @@ def _child(variant: str, kernels: list) -> None:
             _short(torch, cs, ha, tag, kernels)
         if {"K4", "K5", "K6"} & set(kernels):
             _long(torch, cs, hl, tag, kernels)
-        if "K10" in kernels:
-            _window(torch, cs, wa, tag)
+        if {"K8", "K10"} & set(kernels):
+            _window(torch, cs, wa, tag, kernels)
+        if "K11" in kernels:
+            _mlp(torch, cs, fm, tag)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

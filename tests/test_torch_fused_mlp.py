@@ -148,9 +148,14 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 # (M, D, F): the DINO step's row counts at ViT-S (16 global crops of 785
 # tokens; packed 184+84, 164+124, 144+104 px pairs; 84 px alone), ViT-B and
-# ViT-Ti widths, and a ragged small M
+# ViT-Ti widths, and a ragged small M; then at each width an M below one
+# row tile (128 rows at D = 192 and 384, 64 at 768), one past a tile edge,
+# and 12560
 CARD_SHAPES = [(12560, 384, 1536), (5048, 384, 1536), (808, 384, 1536),
-               (12560, 768, 3072), (70, 192, 768)]
+               (12560, 768, 3072), (70, 192, 768),
+               (50, 192, 768), (129, 192, 768), (12560, 192, 768),
+               (50, 384, 1536), (129, 384, 1536),
+               (40, 768, 3072), (65, 768, 3072)]
 
 
 @pytest.mark.cuda

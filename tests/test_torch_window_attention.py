@@ -177,19 +177,47 @@ def test_kernels_match_plain_on_card(cuda_device, what, nB, heads, kind, variant
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nB,heads,side", [(256, 6, 28), (1029, 3, 49)],
+                         ids=["256x6", "ragged-1029x3"])
 @pytest.mark.parametrize("bwd", ["window_attention_bwd", "window_attention_stacked_bwd"])
-def test_dbias_is_deterministic_on_card(cuda_device, bwd):
-    nB, heads = 256, 6
+def test_dbias_is_deterministic_on_card(cuda_device, bwd, nB, heads, side):
+    """q, k, v and dO as tensors of their own (K8 encodes a map each); 1029
+    windows are no multiple of the grid's windows a block."""
     C = heads * 32
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v, do = (torch.randn(nB, WW, C, generator=gen, device="cuda").bfloat16() for _ in range(4))
     bias = torch.randn(heads, WW, WW, generator=gen, device="cuda")
-    mask = card_mask(("shift", 28), cuda_device)
+    mask = card_mask(("shift", side), cuda_device)
     first = getattr(wa, bwd)(q, k, v, bias, mask, do, heads)
     again = getattr(wa, bwd)(q, k, v, bias, mask, do, heads)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     assert math.isfinite(first[3].abs().sum().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
+@pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES + [("ragged 1029", 1029, 3, ("shift", 49))])
+def test_perhead_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, masked):
+    """K8 has no atomics: two calls on the same inputs give the same dq, dk,
+    dv and dbias bits, with the shape's mask and without one; and q, k, v
+    as column slices of one qkv tensor (one tensor map for the three) give
+    the same bits as q, k, v copied to tensors of their own (a map each)."""
+    C = heads * 32
+    gen = torch.Generator(device="cuda").manual_seed(5 * nB + heads)
+    qkv = torch.randn(nB, WW, 3 * C, generator=gen, device="cuda").bfloat16()
+    bias = 0.1 * torch.randn(heads, WW, WW, generator=gen, device="cuda")
+    do = torch.randn(nB, WW, C, generator=gen, device="cuda").bfloat16()
+    mask = card_mask(kind, cuda_device) if masked else None
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    first = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
+    again = wa.window_attention_bwd(q, k, v, bias, mask, do, heads)
+    apart = wa.window_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, mask,
+                                    do, heads)
+    torch.cuda.synchronize()
+    for a, b, c, name in zip(first, again, apart, ("dq", "dk", "dv", "dbias")):
+        assert torch.equal(a, b), f"{what} {name}"
+        assert torch.equal(a, c), f"{what} {name}, q/k/v apart"
 
 
 @pytest.mark.cuda
