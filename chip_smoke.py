@@ -13,7 +13,10 @@ script exits non-zero:
    and without the host's cost, K2 also as its two launches (dQ, dK/dV)
    beside SDPA's dq and dk/dv;
 3. photometric K3 against its plain version at 224 and 84 px, with rows
-   that cover every branch;
+   that cover every branch, the flip applied and not; bit-identical on a
+   repeat; timed with the flip, as the DINO step calls it, at every crop
+   size of the step (224 and 184 ... 84 px), with and without the host's
+   cost;
 4. the real entry point, ``dinomc_tpu_torch.cli.train_dino.train_dino``,
    for 5 ViT-S/8 steps (out_dim 65536, batch 8, synthetic images, weights
    from a seed), with every kernel's launch count over that run;
@@ -32,8 +35,8 @@ script exits non-zero:
    against their plain version on the card, in bf16, at the four stage
    shapes of Swin-T at 224 px (16 images), the 184 px stage-1 shape (shift +
    pad masks), the 84 px stage-4 shape (a pad-only mask) and a ragged small
-   one; K8's gradients bit-identical on a repeated call; every 224 px
-   stage timed as kernel, plain version and
+   one; K7's output and K8's gradients bit-identical on a repeated call;
+   every 224 px stage timed as kernel, plain version and
    ``F.scaled_dot_product_attention`` with the float mask bias + mask, on
    the device and, apart, with the host's launch cost in;
 8. the pretraining entry point again, for 5 Swin-T steps (``--arch swin_t``,
@@ -72,8 +75,8 @@ script checks that the card was still spinning when the last call was
 queued, and fails if it never was. A ``host_`` time is CUDA
 events around 10 calls issued back to back with no spin kernel, so it also
 holds the host's cost of issuing them where that exceeds the device's
-(phases 2, 5, 7 and 9; K1, K2, K4, K5, K6, K8, K10 and K11 encode their
-TMA tensor maps on the host at every call).
+(phases 2, 3, 5, 7 and 9; K1, K2, K4, K5, K6, K7, K8, K10 and K11 encode
+their TMA tensor maps on the host at every call).
 
 Each kernel's bound is the least time the card could take for the work:
 the larger of the bytes it must move (each input read once, each output
@@ -137,6 +140,9 @@ LONG_SHAPES = [  # (what, B, N, heads, head_dim); the first is timed
     ("ragged d16", 1, 1030, 4, 16),
 ]
 SEG_STEPS = 4
+# the DINO step's crop sizes at B = 8: K3 is checked at the first and the
+# last, timed at all
+PHOTO_SIZES = (224, 184, 164, 144, 124, 104, 84)
 SWIN_SHAPES = [  # (what, windows, heads, map side, shift); the first four are timed
     ("stage 1, 224 px", 1024, 3, 56, 3),
     ("stage 2, 224 px", 256, 6, 28, 3),
@@ -365,11 +371,11 @@ def _branch_rows(torch, B, S):
 
     gen = torch.Generator(device="cuda").manual_seed(7 + S)
     rows = ha.draw_photometric_params(gen, B, (0.8, 0.8, 0.8, 0.2), 0.5, 0.5, 0.5, 0.5, device="cuda")
-    flags = torch.tensor([  # jitter, gray, blur, solarize per sample
-        [1, 0, 1, 0], [0, 0, 1, 1], [1, 1, 0, 0], [0, 1, 0, 1],
-        [1, 0, 1, 1], [0, 0, 0, 0], [1, 0, 0, 0], [1, 1, 1, 1],
+    flags = torch.tensor([  # jitter, gray, blur, solarize, flip per sample
+        [1, 0, 1, 0, 1], [0, 0, 1, 1, 0], [1, 1, 0, 0, 1], [0, 1, 0, 1, 0],
+        [1, 0, 1, 1, 0], [0, 0, 0, 0, 1], [1, 0, 0, 0, 0], [1, 1, 1, 1, 1],
     ], dtype=torch.float32, device="cuda")[:B]
-    rows[:, [ha.P_JIT, ha.P_GRAY, ha.P_BLUR, ha.P_SOL]] = flags
+    rows[:, [ha.P_JIT, ha.P_GRAY, ha.P_BLUR, ha.P_SOL, ha.P_FLIP]] = flags
     return rows
 
 
@@ -377,31 +383,40 @@ def phase_photometric(torch):
     from dinomc_tpu_torch.ops.hopper import augment as ha
 
     worst, timing = 0.0, None
-    for S in (224, 84):
+    for S in PHOTO_SIZES:
         B = 8
         gen = torch.Generator(device="cuda").manual_seed(S)
         imgs = torch.rand(B, 3, S, S, generator=gen, device="cuda")
         rows = _branch_rows(torch, B, S)
-        for mean, std in ((ha.IMAGENET_MEAN, ha.IMAGENET_STD), ((0.0,) * 3, (1.0,) * 3)):
-            out = ha.photometric_kernel(imgs, rows, mean, std)
-            torch.cuda.synchronize()
-            ref = ha.photometric_reference(imgs, rows, mean, std)
-            err = (out - ref).abs().max().item()
-            print(f"[photometric] S={S} B={B} mean={mean}: max|diff| {err:.3e}")
-            if not err <= PHOTO_ATOL:
-                raise AssertionError(f"photometric kernel disagrees with its plain version at S={S}")
-            worst = max(worst, err)
-        if S == 224:
-            # ~30 f32 operations a pixel, ~110 with the blur (csrc/photometric.cu)
-            blurred = int(rows[:, ha.P_BLUR].sum().item())
-            flops = S * S * (110 * blurred + 30 * (B - blurred))
-            timing = {
-                "ms": _time_ms(torch, lambda: ha.photometric_kernel(imgs, rows)),
-                "plain_ms": _time_ms(torch, lambda: ha.photometric_reference(imgs, rows)),
-                "bound": _bound(2 * imgs.numel() * 4 + rows.numel() * 4, flops, F32_FLOPS),
-            }
-            print(f"[photometric] S=224 B=8 times: kernel {timing['ms']:.4f} ms  "
-                  f"plain {timing['plain_ms']:.4f} ms")
+        if S in (PHOTO_SIZES[0], PHOTO_SIZES[-1]):
+            for flip in (False, True):
+                for mean, std in ((ha.IMAGENET_MEAN, ha.IMAGENET_STD), ((0.0,) * 3, (1.0,) * 3)):
+                    out = ha.photometric_kernel(imgs, rows, mean, std, flip)
+                    again = ha.photometric_kernel(imgs, rows, mean, std, flip)
+                    torch.cuda.synchronize()
+                    ref = ha.photometric_reference(imgs, rows, mean, std, flip)
+                    err = (out - ref).abs().max().item()
+                    same = torch.equal(out, again)
+                    print(f"[photometric] S={S} B={B} flip={flip} mean={mean}: max|diff| "
+                          f"{err:.3e}  bit-identical on a repeat: {same}")
+                    if not (err <= PHOTO_ATOL and same):
+                        raise AssertionError(f"photometric kernel disagrees with its plain "
+                                             f"version at S={S} flip={flip}")
+                    worst = max(worst, err)
+        # as the DINO step calls it, the flip inside; ~30 f32 operations a
+        # pixel, ~110 with the blur (csrc/photometric.cu)
+        blurred = int(rows[:, ha.P_BLUR].sum().item())
+        flops = S * S * (110 * blurred + 30 * (B - blurred))
+        t = {
+            "ms": _time_ms(torch, lambda: ha.photometric_kernel(imgs, rows, flip=True)),
+            "plain_ms": _time_ms(torch, lambda: ha.photometric_reference(imgs, rows, flip=True)),
+            # with the host's cost of issuing (two launches a call)
+            "host_ms": _host_ms(torch, lambda: ha.photometric_kernel(imgs, rows, flip=True)),
+            "bound": _bound(2 * imgs.numel() * 4 + rows.numel() * 4, flops, F32_FLOPS),
+        }
+        print(f"[photometric] S={S} B={B} flip=True times: {_fmt(t)}")
+        if timing is None:  # the timed shape: the 224 px globals
+            timing = t
     return worst, timing
 
 
@@ -618,13 +633,15 @@ def phase_window_attention(torch):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
-        # K8 is deterministic (no atomics): a second call gives the same bits
-        same = all(torch.equal(a, b) for a, b in zip(
+        # K7 and K8 are deterministic (no atomics): a second call gives the
+        # same bits
+        same_fwd = torch.equal(o, wa.window_attention_fwd(q, k, v, bias, mask, heads))
+        same = same_fwd and all(torch.equal(a, b) for a, b in zip(
             grads, wa.window_attention_bwd(q, k, v, bias, mask, do, heads)))
         print(f"[window attention] {what}: windows={nB} heads={heads} map={side} shift={shift} "
               f"mask={None if mask is None else tuple(mask.shape)}  fwd max|diff| {fwd_err:.3e}  "
-              f"dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}  backward bit-identical on a "
-              f"repeat: {same}")
+              f"dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}  forward bit-identical on a "
+              f"repeat: {same_fwd}, backward too: {same}")
         if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
             raise AssertionError(f"window attention kernels disagree with their plain version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),

@@ -1,8 +1,9 @@
 // Device code shared by the Hopper kernels: the short-sequence attention
 // forward K1 and backward K2 (attention.cu), the long-sequence forward K4,
 // dQ K5 and dK/dV K6 (attention_long.cu), through hopper_window.cuh the
-// window-attention backwards K8 (window_attention.cu) and K10
-// (window_attention_stacked.cu), and the fused MLP K11 (fused_mlp.cu).
+// window-attention forward K7 and backward K8 (window_attention.cu) and the
+// backward K10 (window_attention_stacked.cu), and the fused MLP K11
+// (fused_mlp.cu).
 //
 // - TMA: a tensor map per (B, N, h, d) bf16 tensor, or per (rows, cols)
 //   matrix (make_map_2d, K11), encoded on the host per call and passed to
@@ -189,6 +190,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Copy 4 bytes from global to shared memory without going through
+// registers; cp_async_arrive reports the copy to an mbarrier.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued so far has landed.
+// The arrival is one of the barrier's expected count (noinc), so a barrier
+// that waits for it is initialised to count it.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Wait until every cp.async this thread issued has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // One 64-row box of (batch b, head h) starting at row `row` into `dst`;

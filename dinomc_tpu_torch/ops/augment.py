@@ -6,8 +6,9 @@ draws are made first (``draw_multicrop``) and applied second
 Per crop: RandomResizedCrop through explicit resampling matrices that
 reproduce ``jax.image.scale_and_translate`` (Keys cubic a = -0.5 for the
 globals, triangle for the locals, antialiased, weights renormalized,
-samples outside the input zeroed), clip to [0, 1], horizontal flip, then
-the photometric chain (``ops/hopper/augment.fused_photometric``). Images
+samples outside the input zeroed), clip to [0, 1], then the horizontal
+flip and the photometric chain in one call
+(``ops/hopper/augment.fused_photometric(..., flip=True)``). Images
 are NHWC at the public functions, as in the JAX package.
 
 The unfused ``color_jitter`` and ``normalize`` serve the segmentation
@@ -27,7 +28,6 @@ import torch
 from dinomc_tpu_torch.ops.hopper.augment import (
     IMAGENET_MEAN,
     IMAGENET_STD,
-    P_FLIP,
     _gray,
     draw_photometric_params,
     fused_photometric,
@@ -175,11 +175,10 @@ def random_resized_crop(
 
 
 def _crop(images, draw: CropDraw, size: int, method: str) -> torch.Tensor:
-    """Planar images -> resized crop -> flip -> photometric -> NHWC."""
+    """Planar images -> resized crop -> flip and photometric (one K3 call)
+    -> NHWC."""
     x = random_resized_crop(images, draw.boxes, size, method)
-    flip = (draw.params[:, P_FLIP] > 0.5)[:, None, None, None]
-    x = torch.where(flip, x.flip(-1), x)
-    return fused_photometric(x, draw.params).permute(0, 2, 3, 1)
+    return fused_photometric(x, draw.params, flip=True).permute(0, 2, 3, 1)
 
 
 def multicrop_augment(

@@ -40,11 +40,12 @@ _SIGNATURES = {
     "dinomc_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _I, _P, _I],
     "dinomc_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _I, _P, _I],
     "dinomc_attn_bwd_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _I, _P, _I],
-    "dinomc_photometric": [_P] * 4 + [_I] * 2 + [_F] * 6 + [_P],
+    "dinomc_photometric": [_P] * 4 + [_I] * 3 + [_F] * 6 + [_P],
     "dinomc_long_attn_fwd": [_P] * 5 + [_I] * 4 + [_L] * 3 + [_F, _P, _I],
     "dinomc_long_attn_dq": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P, _I],
     "dinomc_long_attn_dkv": [_P] * 8 + [_I] * 4 + [_L] * 3 + [_F, _P, _I],
-    "dinomc_win_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 4 + [_F, _P],
+    "dinomc_win_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 2 + [_F, _P, _I],
+    "dinomc_win_attn_fwd_per_sm": [_I],
     "dinomc_win_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 4 + [_F, _P, _I],
     "dinomc_win_attn_bwd_per_sm": [_I],
     "dinomc_wins_attn_fwd": [_P] * 6 + [_I] * 6 + [_L] * 4 + [_F, _P],

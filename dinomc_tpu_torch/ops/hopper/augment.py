@@ -4,8 +4,11 @@ parameter rows both consume.
 
 Counterpart of ``dinomc_tpu/ops/pallas/augment.py``: the same channel-planar
 (B, 3, S, S) f32 layout and the same (B, 24) row layout, so rows drawn by the
-JAX package's ``draw_photometric_params`` drive this module unchanged. The
-flip is the caller's (``P_FLIP`` is informational here too).
+JAX package's ``draw_photometric_params`` drive this module unchanged.
+With ``flip=True`` the chain starts with each row's horizontal flip
+(``P_FLIP``), inside the kernel; with ``flip=False`` ``P_FLIP`` is
+informational, as it is in the JAX package, whose TPU kernel leaves the flip
+to its caller.
 """
 
 from __future__ import annotations
@@ -130,11 +133,15 @@ def photometric_reference(
     params: torch.Tensor,
     mean: Sequence[float] = IMAGENET_MEAN,
     std: Sequence[float] = IMAGENET_STD,
+    flip: bool = False,
 ) -> torch.Tensor:
-    """Plain version of K3 over (B, 3, S, S) f32 planar images."""
+    """Plain version of K3 over (B, 3, S, S) f32 planar images; ``flip``
+    first mirrors the rows whose ``P_FLIP`` is set."""
     x = images
     col = lambda i: params[:, i].view(-1, 1, 1, 1)  # noqa: E731
     on = lambda i: col(i) > 0.5  # noqa: E731
+    if flip:
+        x = torch.where(on(P_FLIP), x.flip(-1), x)
     fb, fc, fs = col(P_FB), col(P_FC), col(P_FS)
     y = (x * fb).clamp(0.0, 1.0)
     mean_gray = _gray(y[:, 0], y[:, 1], y[:, 2]).mean(dim=(1, 2)).view(-1, 1, 1, 1)
@@ -154,8 +161,9 @@ def photometric_reference(
     return torch.stack([(x[:, c] - mean[c]) * (1.0 / std[c]) for c in range(3)], dim=1)
 
 
-def photometric_kernel(images, params, mean=IMAGENET_MEAN, std=IMAGENET_STD):
-    """K3 on CUDA tensors: (B, 3, S, S) f32 -> (B, 3, S, S) f32."""
+def photometric_kernel(images, params, mean=IMAGENET_MEAN, std=IMAGENET_STD, flip=False):
+    """K3 on CUDA tensors: (B, 3, S, S) f32 -> (B, 3, S, S) f32, the rows'
+    flips applied first when ``flip``."""
     _build.require_cuda("fused_photometric", images, params)
     if images.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError("fused_photometric kernel takes f32 images and params")
@@ -165,10 +173,12 @@ def photometric_kernel(images, params, mean=IMAGENET_MEAN, std=IMAGENET_STD):
                          f"got {tuple(images.shape)} and {tuple(params.shape)}")
     images, params = images.contiguous(), params.contiguous()
     out = torch.empty_like(images)
-    mean_gray = torch.empty((B,), dtype=torch.float32, device=images.device)
+    # the mean-gray partial sums of each image's row bands (fewer than S)
+    partials = torch.empty((B, S), dtype=torch.float32, device=images.device)
     err = _build.library().dinomc_photometric(
-        images.data_ptr(), params.data_ptr(), mean_gray.data_ptr(), out.data_ptr(),
-        B, S, *map(float, mean), *(1.0 / s for s in std), _build.stream_handle(images),
+        images.data_ptr(), params.data_ptr(), partials.data_ptr(), out.data_ptr(),
+        B, S, int(flip), *map(float, mean), *(1.0 / s for s in std),
+        _build.stream_handle(images),
     )
     _build.check(err, "photometric")
     _build.LAUNCHES["photometric"] += 1
@@ -180,11 +190,13 @@ def fused_photometric(
     params: torch.Tensor,
     mean: Sequence[float] = IMAGENET_MEAN,
     std: Sequence[float] = IMAGENET_STD,
+    flip: bool = False,
 ) -> torch.Tensor:
-    """Jitter + gray + blur + solarize + normalize on (B, 3, S, S) f32 in
-    [0, 1]. CUDA tensors go through K3; CPU tensors through
-    ``photometric_reference``. ``mean=(0,0,0), std=(1,1,1)`` makes the
+    """(Flip +) jitter + gray + blur + solarize + normalize on (B, 3, S, S)
+    f32 in [0, 1]. CUDA tensors go through K3; CPU tensors through
+    ``photometric_reference``. ``flip=True`` mirrors the rows whose
+    ``P_FLIP`` is set first. ``mean=(0,0,0), std=(1,1,1)`` makes the
     normalize an identity."""
     if images.device.type == "cpu":
-        return photometric_reference(images, params, mean, std)
-    return photometric_kernel(images, params, mean, std)
+        return photometric_reference(images, params, mean, std, flip)
+    return photometric_kernel(images, params, mean, std, flip)

@@ -12,9 +12,11 @@ a block-diagonal mask; the CUDA kernels compute one window at a time, so
 nothing of that packing (``pick_group``, the rank-49 augmentation, the
 stacked variant's block-stacked K'/V' operands) is kept. K7/K8 give a block
 one head over many windows; K9/K10 give a block a chunk of heads of each of
-its windows, one warp a head (K9) or one warpgroup a head (K10). K8 and K10
-run one backward body on wgmma and TMA (``csrc/hopper_window.cuh``), K8
-with one head a block; both size their grid to one wave of resident blocks.
+its windows, one warp a head (K9) or one warpgroup a head (K10). K7 runs
+the forward body on wgmma and TMA (``csrc/hopper_window.cuh``,
+``window_fwd_block``) with one head a block; K8 and K10 run one backward
+body (``window_bwd_block``), K8 with one head a block. K7, K8 and K10 size
+their grid to one wave of resident blocks.
 The backward's dbias comes from per-block partials summed in a fixed order
 (no atomics) and stays in f32; the TPU kernels round dS to bf16 before
 summing it.
@@ -38,7 +40,7 @@ from dinomc_tpu_torch.ops.hopper import _build
 
 WINDOW_TOKENS = 49  # a 7 x 7 window
 HEAD_DIM = 32
-BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K7, K9)
+BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K9)
 # Most heads a block of K9 / K10 takes (csrc/window_attention_stacked.cu):
 # K9 holds up to 8, K10 up to 3 in shared memory; K10's is timed against 1
 # and 2 by scripts/attention_variants.py (PERF.md).
@@ -110,15 +112,28 @@ def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None,
     return q, k, v, bias.contiguous(), mask, (nB, nW, mask_rows, wpc) + q.stride()[:2]
 
 
+@functools.cache
+def _fwd_per_sm(index: int) -> int:
+    """Blocks of K7 that one SM holds at once."""
+    n = _build.library().dinomc_win_attn_fwd_per_sm(index)
+    if n <= 0:
+        raise RuntimeError(f"window attention forward: no block fits an SM (CUDA error {-n})")
+    return n
+
+
 def window_attention_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
-    """K7: returns o, (nB, 49, C) bf16 contiguous."""
-    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(q, k, v, bias, mask, heads)
+    """K7: returns o, (nB, 49, C) bf16 contiguous. The windows are cut into
+    one wave of resident blocks."""
+    _build.require_cuda("window_attention", q)
+    per_sm = _fwd_per_sm(q.device.index or 0)
+    q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
+        q, k, v, bias, mask, heads, per_sm=per_sm)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.library().dinomc_win_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), o.data_ptr(),
-        nB, heads, nW, mask_rows, wpc, sw, sn, o.stride(0), o.stride(1),
-        1.0 / math.sqrt(HEAD_DIM), _build.stream_handle(q),
+        nB, heads, nW, mask_rows, wpc, sw, sn, 1.0 / math.sqrt(HEAD_DIM),
+        _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "window attention forward")
     _build.LAUNCHES["window_attention_fwd"] += 1

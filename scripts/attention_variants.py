@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the Hopper kernels K1, K2, K4, K5, K6, K8, K10 and K11 on one GPU.
+"""Time variants of the hand-written kernels K1-K8, K10 and K11 on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -7,23 +7,27 @@ Run from the root of a checkout on a machine with a CUDA card:
         "DQ_KEYS=64" "DQ_KEYS=128 STACKED_BWD_HEADS=2"
 
 Each argument is one variant: overrides of the ``constexpr int`` tile
-constants in ``dinomc_tpu_torch/csrc/*.cu`` (``ATTN_FWD_KEYS``,
+constants in ``dinomc_tpu_torch/csrc/*.cu`` (``PHOTO_THREADS``,
+``PART_ROWS`` for K3; ``ATTN_FWD_KEYS``,
 ``ATTN_FWD_STAGES`` for K1; ``BWD_WGS``, ``BWD_STAGES`` for K2; ``FWD_WGS``,
 ``FWD_STAGES`` for K4; ``DQ_WGS``, ``DQ_KEYS``, ``DQ_STAGES`` for K5;
-``DKV_WGS``, ``DKV_STAGES`` for K6; ``WIN_BWD_STAGES`` for K8;
+``DKV_WGS``, ``DKV_STAGES`` for K6; ``WIN_FWD_STAGES`` for K7;
+``WIN_BWD_STAGES`` for K8;
 ``WINS_BWD_STAGES`` for K10; ``MLP384_ROW_GROUPS``, ``MLP384_COL_SPLIT``,
 ``MLP384_CHUNK``, ``MLP384_STAGES`` for K11 at the ViT-S width; ...), and
 of ``STACKED_BWD_HEADS``, K10's most heads a block
 (``ops/hopper/window_attention.STACKED_HEADS["bwd"]``). Each variant runs in
 a process of its own that copies ``csrc/`` to a temporary directory,
 rewrites the constants there, builds that library and, on chip_smoke.py's
-shapes, checks each kernel of ``--kernels`` (default all eight) against its
+shapes, checks each kernel of ``--kernels`` (default all ten) against its
 plain version with chip_smoke.py's bounds and times it as chip_smoke.py
-does (device time, CUDA events behind a spin kernel): K1 and K2 at the five
+does (device time, CUDA events behind a spin kernel): K3 with the flip at
+every crop size of phase 3 (also with the host's cost); K1 and K2 at the five
 main-path shapes of phase 2, K4, K5 and K6 at the first three of phase 5,
-K8 and K10 at the four 224 px stages of phase 7, K11 at the ViT-S rows of
-phase 9 beside the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain; K2,
-K5, K6, K8 and K10 also bit-identical on a repeated call. The variants run
+K7, K8 and K10 at the four 224 px stages of phase 7 (K7 also with the
+host's cost), K11 at the ViT-S rows of phase 9 beside the dense
+``F.linear``, ``F.gelu``, ``F.linear`` chain; K2, K3, K5, K6, K7, K8 and
+K10 also bit-identical on a repeated call. The variants run
 in the order given and then in reverse (A B B A), so a drift of the card's
 speed falls on each alike.
 """
@@ -41,7 +45,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-KERNELS = ("K1", "K2", "K4", "K5", "K6", "K8", "K10", "K11")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K11")
 HEADS_KNOB = "STACKED_BWD_HEADS"  # a Python constant, not a csrc one
 
 
@@ -102,6 +106,21 @@ def _short(torch, cs, ha, tag, kernels):
                   f"(dQ {t_dq:.4f}, dK/dV {t_dkv:.4f})", flush=True)
 
 
+def _photometric(torch, cs, ha, tag):
+    for S in cs.PHOTO_SIZES:
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        imgs = torch.rand(8, 3, S, S, generator=gen, device="cuda")
+        rows = cs._branch_rows(torch, 8, S)
+        out, again = (ha.photometric_kernel(imgs, rows, flip=True) for _ in range(2))
+        err = (out - ha.photometric_reference(imgs, rows, flip=True)).abs().max().item()
+        if not (err <= cs.PHOTO_ATOL and torch.equal(out, again)):
+            raise AssertionError(f"{tag} K3 disagrees with its plain version at S={S}")
+        t = cs._time_ms(torch, lambda: ha.photometric_kernel(imgs, rows, flip=True))
+        host = cs._host_ms(torch, lambda: ha.photometric_kernel(imgs, rows, flip=True))
+        print(f"{tag} K3 S={S}: max|diff| {err:.3e}, repeat bit-identical  ms {t:.4f}  "
+              f"host ms {host:.4f}", flush=True)
+
+
 def _long(torch, cs, hl, tag, kernels):
     for i, (what, B, N, h, d) in enumerate(cs.LONG_SHAPES[:3]):
         q, k, v, do, s = _inputs(torch, 200 + i, B, N, h, d)
@@ -146,6 +165,16 @@ def _window(torch, cs, wa, tag, kernels):
                  if name in kernels]
     for i, (what, nB, heads, side, shift) in enumerate(cs.SWIN_SHAPES[:4]):
         q, k, v, bias, mask, do = cs._window_inputs(torch, nB, heads, side, shift, 300 + i)
+        if "K7" in kernels:
+            o, again = (wa.window_attention_fwd(q, k, v, bias, mask, heads) for _ in range(2))
+            ref = wa.window_attention_reference(q, k, v, bias, mask, heads)
+            err = (o.float() - ref.float()).abs().max().item()
+            if not (err <= cs.ATTN_FWD_ATOL and torch.equal(o, again)):
+                raise AssertionError(f"{tag} K7 disagrees with its plain version at {what}")
+            t = cs._time_ms(torch, lambda: wa.window_attention_fwd(q, k, v, bias, mask, heads))
+            host = cs._host_ms(torch, lambda: wa.window_attention_fwd(q, k, v, bias, mask, heads))
+            print(f"{tag} K7 {what}: max|diff| {err:.3e}, repeat bit-identical  ms {t:.4f}  "
+                  f"host ms {host:.4f}", flush=True)
         xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
         ref = torch.autograd.grad(wa.window_attention_reference(*xs, mask, heads), xs, do)
         for name, bwd in launchers:
@@ -186,6 +215,7 @@ def _child(variant: str, kernels: list) -> None:
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.ops.hopper import attention as ha
     from dinomc_tpu_torch.ops.hopper import attention_long as hl
+    from dinomc_tpu_torch.ops.hopper import augment as hp
     from dinomc_tpu_torch.ops.hopper import fused_mlp as fm
     from dinomc_tpu_torch.ops.hopper import window_attention as wa
 
@@ -199,11 +229,13 @@ def _child(variant: str, kernels: list) -> None:
         _build.CSRC_DIR, _build.BUILD_DIR = tmp / "csrc", tmp / "build"
         _build.library()
         tag = f"[{variant}]"
+        if "K3" in kernels:
+            _photometric(torch, cs, hp, tag)
         if {"K1", "K2"} & set(kernels):
             _short(torch, cs, ha, tag, kernels)
         if {"K4", "K5", "K6"} & set(kernels):
             _long(torch, cs, hl, tag, kernels)
-        if {"K8", "K10"} & set(kernels):
+        if {"K7", "K8", "K10"} & set(kernels):
             _window(torch, cs, wa, tag, kernels)
         if "K11" in kernels:
             _mlp(torch, cs, fm, tag)

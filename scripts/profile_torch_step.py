@@ -60,7 +60,7 @@ DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
 # hand-written kernels, by the prefix of their CUDA function names
 KERNEL_FUNCS = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkv_kernel",
-                "long_fwd_kernel", "long_dq_kernel", "long_dkv_kernel", "mean_gray_kernel",
+                "long_fwd_kernel", "long_dq_kernel", "long_dkv_kernel", "gray_partials_kernel",
                 "photometric_kernel", "win_fwd_kernel", "win_bwd_kernel",
                 "win_dbias_reduce_kernel", "wins_fwd_kernel", "wins_bwd_kernel",
                 "wins_dbias_reduce_kernel", "fused_mlp_kernel")

@@ -4,8 +4,11 @@ the JAX package.
 K3's plain version ``photometric_reference`` is held against the JAX
 package's unfused chain (flip, color jitter, grayscale, blur, solarize,
 normalize: tests/test_fused_augment.py's reference), fed with rows from JAX
-``draw_photometric_params`` on the same keys, at that file's atol 2e-4. The
-CUDA kernel is held against the plain version on the card (``cuda``).
+``draw_photometric_params`` on the same keys, at that file's atol 2e-4; with
+``flip=True`` also against the JAX package's own flip-then-Pallas-kernel
+chain, run in interpret mode on the stages its interpreter evaluates
+faithfully (tests/test_fused_augment.py's note: not the jitter). The CUDA
+kernel is held against the plain version on the card (``cuda``).
 """
 
 import jax
@@ -38,12 +41,10 @@ def _unfused_chain(x, k, jitter, p_jit, p_gray, p_blur, p_sol):
 
 
 def _port_chain(x_nhwc, rows, mean=haug.IMAGENET_MEAN, std=haug.IMAGENET_STD):
-    """Flip by row P_FLIP (the caller's job, as in the JAX package), then the
-    photometric wrapper on planar CPU tensors."""
+    """The photometric wrapper on planar CPU tensors, flipping by row P_FLIP
+    itself (``flip=True``, as the port's multi-crop caller asks)."""
     x = t(x_nhwc).permute(0, 3, 1, 2)
-    flip = (rows[:, haug.P_FLIP] > 0.5)[:, None, None, None]
-    x = torch.where(flip, x.flip(-1), x)
-    return haug.fused_photometric(x, rows, mean, std).permute(0, 2, 3, 1)
+    return haug.fused_photometric(x, rows, mean, std, flip=True).permute(0, 2, 3, 1)
 
 
 @pytest.mark.parametrize("jitter,p_jit,p_gray,p_blur,p_sol", CHAINS)
@@ -74,6 +75,32 @@ def test_identity_normalize_matches_jax():
     ref = np.asarray(xaug.random_hflip(k[3], ref))
     out = n(_port_chain(x, t(rows), (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)))
     np.testing.assert_allclose(out, ref, atol=2e-4)
+
+
+@pytest.mark.parametrize("p_flip,p_gray,p_blur,p_sol", [
+    pytest.param(1.0, 0.5, 0.5, 0.5, id="flip-on"),
+    pytest.param(0.0, 0.5, 0.5, 0.5, id="flip-off"),
+    pytest.param(0.5, 0.0, 1.0, 0.0, id="flip-mixed-blur"),
+])
+def test_plain_flip_matches_jax_flip_then_pallas_kernel(p_flip, p_gray, p_blur, p_sol):
+    """``photometric_reference(x, rows, flip=True)`` against the JAX package's
+    flip (``jnp.where`` on P_FLIP) followed by its Pallas kernel in interpret
+    mode; jitter off, the stage its interpreter misevaluates (the full chain
+    with jitter and flip is held to the unfused chain above)."""
+    B, S, seed = 8, 40, 17
+    x = np.random.default_rng(seed).uniform(size=(B, 3, S, S)).astype(np.float32)
+    k = jax.random.split(jax.random.PRNGKey(seed), 6)
+    rows = paug.draw_photometric_params(
+        k[1], k[2], k[3], k[4], k[5] if p_sol > 0 else None, B, (0.4, 0.4, 0.2, 0.1),
+        p_jit=0.0, p_gray=p_gray, p_blur=p_blur, p_sol=p_sol, p_flip=p_flip,
+    )
+    flip = (rows[:, paug.P_FLIP] > 0.5)[:, None, None, None]
+    xj = jnp.where(flip, jnp.asarray(x)[..., ::-1], jnp.asarray(x))
+    ref = np.asarray(paug.fused_photometric(xj, rows, interpret=True))
+    out = n(haug.photometric_reference(t(x), t(rows), flip=True))
+    np.testing.assert_allclose(out, ref, atol=2e-4)
+    flips = int(np.asarray(rows[:, paug.P_FLIP]).sum())
+    assert {1.0: flips == B, 0.0: flips == 0, 0.5: 0 < flips < B}[p_flip]
 
 
 @pytest.mark.parametrize("fh", [0.0, 0.07, -0.18, 0.5])
@@ -143,3 +170,21 @@ def test_kernel_matches_plain_on_card(cuda_device, S):
     torch.cuda.synchronize()
     ref = haug.photometric_reference(x, rows)
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [224, 84, 37])
+def test_flip_kernel_matches_plain_on_card(cuda_device, S):
+    """K3 with ``flip=True`` (rows with P_FLIP on and off) against the plain
+    version in f32, atol 1e-4; 37 px takes the scalar path. Bit-identical on
+    a repeat: the mean gray's partials are summed in a fixed order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + S)
+    x = torch.rand(8, 3, S, S, generator=gen, device=cuda_device)
+    rows = haug.draw_photometric_params(gen, 8, (0.8, 0.8, 0.8, 0.2), 0.5, 0.5, 0.5, 0.5)
+    rows[:, haug.P_FLIP] = torch.tensor([1, 0] * 4, dtype=torch.float32, device=cuda_device)
+    out = haug.photometric_kernel(x, rows, flip=True)
+    again = haug.photometric_kernel(x, rows, flip=True)
+    torch.cuda.synchronize()
+    ref = haug.photometric_reference(x, rows, flip=True)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, again)

@@ -222,6 +222,31 @@ def test_perhead_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
+@pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES + [("ragged 1029", 1029, 3, ("shift", 49))])
+def test_perhead_fwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, masked):
+    """K7 has no atomics: two calls on the same inputs give the same bits,
+    with the shape's mask and without one; and q, k, v as column slices of
+    one qkv tensor (one tensor map for the three) give the same bits as q,
+    k, v copied to tensors of their own (a map each)."""
+    C = heads * 32
+    gen = torch.Generator(device="cuda").manual_seed(3 * nB + heads)
+    qkv = torch.randn(nB, WW, 3 * C, generator=gen, device="cuda").bfloat16()
+    bias = 0.1 * torch.randn(heads, WW, WW, generator=gen, device="cuda")
+    mask = card_mask(kind, cuda_device) if masked else None
+    q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
+    first = wa.window_attention_fwd(q, k, v, bias, mask, heads)
+    again = wa.window_attention_fwd(q, k, v, bias, mask, heads)
+    apart = wa.window_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, mask,
+                                    heads)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again), what
+    assert torch.equal(first, apart), f"{what}, q/k/v apart"
+    ref = wa.window_attention_reference(q, k, v, bias, mask, heads)
+    assert (first.float() - ref.float()).abs().max().item() <= 1e-2, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
 @pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES)
 def test_stacked_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, masked):
     """K10 has no atomics: two calls on the same inputs give the same dq, dk,
