@@ -775,7 +775,9 @@ def _window_inputs(torch, nB, heads, side, shift, seed):
 
 def phase_window_attention_stacked(torch, win_t):
     """K9/K10 against the plain version at phase 7's shapes (the same
-    inputs), each 224 px stage timed beside K7/K8; then the main path."""
+    inputs), both bit-identical on a repeat and K9 also between qkv column
+    slices and tensors of their own; each 224 px stage timed beside K7/K8
+    (device time, and K9/K7 with the host's cost); then the main path."""
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.ops.hopper import window_attention as wa
 
@@ -793,15 +795,21 @@ def phase_window_attention_stacked(torch, win_t):
         fwd_err = (o.float() - ref.float()).abs().max().item()
         errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, g_ref)]
         rel = max(e / b.float().abs().max().item() for e, b in zip(errs, g_ref))
-        # K10 is deterministic (no atomics): a second call gives the same bits
+        # K9 and K10 are deterministic (no atomics): a second call gives the
+        # same bits, and so do q, k, v as tensors of their own (a map each)
+        same_fwd = torch.equal(o, wa.window_attention_stacked_fwd(q, k, v, bias, mask, heads))
+        apart_fwd = torch.equal(o, wa.window_attention_stacked_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), bias, mask, heads))
         same = all(torch.equal(a, b) for a, b in zip(
             grads, wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)))
         print(f"[stacked window attention] {what}: windows={nB} heads={heads} "
               f"(a block: {wa.head_chunk(heads, wa.STACKED_HEADS['fwd'])} / "
               f"{wa.head_chunk(heads, wa.STACKED_HEADS['bwd'])} heads)  fwd max|diff| "
               f"{fwd_err:.3e}  dq/dk/dv/dbias max abs {errs}  max rel {rel:.3e}  "
-              f"backward bit-identical on a repeat: {same}")
-        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL and same):
+              f"forward bit-identical on a repeat: {same_fwd}, q/k/v apart: {apart_fwd}; "
+              f"backward on a repeat: {same}")
+        if not (fwd_err <= ATTN_FWD_ATOL and rel <= ATTN_GRAD_RTOL
+                and same_fwd and apart_fwd and same):
             raise AssertionError(f"stacked window attention kernels disagree with their plain "
                                  f"version at {what}")
         worst = {"fwd": max(worst["fwd"], fwd_err), "grad": max(worst["grad"], *errs),
@@ -811,6 +819,10 @@ def phase_window_attention_stacked(torch, win_t):
                 "fwd_ms": _time_ms(torch, lambda: wa.window_attention_stacked_fwd(
                     q, k, v, bias, mask, heads)),
                 "perhead_fwd_ms": _time_ms(torch, lambda: wa.window_attention_fwd(
+                    q, k, v, bias, mask, heads)),
+                "host_fwd_ms": _host_ms(torch, lambda: wa.window_attention_stacked_fwd(
+                    q, k, v, bias, mask, heads)),
+                "perhead_host_fwd_ms": _host_ms(torch, lambda: wa.window_attention_fwd(
                     q, k, v, bias, mask, heads)),
                 "bwd_ms": _time_ms(torch, lambda: wa.window_attention_stacked_bwd(
                     q, k, v, bias, mask, do, heads)),

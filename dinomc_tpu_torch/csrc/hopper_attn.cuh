@@ -1,9 +1,9 @@
 // Device code shared by the Hopper kernels: the short-sequence attention
 // forward K1 and backward K2 (attention.cu), the long-sequence forward K4,
 // dQ K5 and dK/dV K6 (attention_long.cu), through hopper_window.cuh the
-// window-attention forward K7 and backward K8 (window_attention.cu) and the
-// backward K10 (window_attention_stacked.cu), and the fused MLP K11
-// (fused_mlp.cu).
+// window-attention forward K7 and backward K8 (window_attention.cu) and
+// their head-stacked K9 and K10 (window_attention_stacked.cu), and the fused
+// MLP K11 (fused_mlp.cu).
 //
 // - TMA: a tensor map per (B, N, h, d) bf16 tensor, or per (rows, cols)
 //   matrix (make_map_2d, K11), encoded on the host per call and passed to

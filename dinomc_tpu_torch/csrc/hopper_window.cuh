@@ -1,7 +1,9 @@
-// Device code of the Hopper window attention: the forward K7
-// (window_attention.cu) runs window_fwd_block with one head a block; the
-// backward K8 (window_attention.cu) runs window_bwd_block with one head a
-// block, K10 (window_attention_stacked.cu) with a chunk of HC heads a block.
+// Device code of the Hopper window attention: window_fwd_block, the
+// forward that K7 (window_attention.cu) runs with one head a block and K9
+// (window_attention_stacked.cu) with a chunk of HC heads a block; and
+// window_bwd_block, the backward that K8 (window_attention.cu) runs with one
+// head a block and K10 (window_attention_stacked.cu) with a chunk of HC
+// heads. win_triple_maps encodes the q/k/v (and dq/dk/dv) maps of all four.
 //
 // What they compute, for every 49-token window w and head h (head_dim 32):
 // P = softmax(Q K^T * scale + bias[h] + mask[w mod nW]) and O = P V forward;
@@ -391,23 +393,29 @@ __device__ __forceinline__ void window_bwd_block(
   }
 }
 
-// Host: the seven tensor maps of a window backward launch. q, k, v: (nB,
-// 49, H * 32) views sharing strides (sw, sn), unit stride in the channel;
-// dout, dq, dk, dv contiguous. The caller has bound its device.
-struct WinBwdMaps {
-  CUtensorMap q, k, v, dout, dq, dk, dv;
-};
-
-inline CUresult make_win_bwd_maps(WinBwdMaps& m, const void* q, const void* k, const void* v,
-                                  const void* dout, void* dq, void* dk, void* dv, int nB, int H,
-                                  long long sw, long long sn) {
-  CUresult res = make_map<WIN_HD>(&m.q, q, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.k, k, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.v, v, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.dout, dout, nB, WIN_TOKENS, H);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.dq, dq, nB, WIN_TOKENS, H);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.dk, dk, nB, WIN_TOKENS, H);
-  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m.dv, dv, nB, WIN_TOKENS, H);
+// Host: the maps of one (q, k, v) or (dq, dk, dv) triple of (nB, 49, H *
+// 32) bf16 views with strides (sw, sn) and unit stride in the channel. When
+// b and c follow a by C and 2C channels (column slices of one (nB, 49, 3C)
+// tensor, as Swin passes them), one map over 3H heads serves all three,
+// with b and c at head offsets H and 2H; else a map each, offsets 0. The
+// caller has bound its device (see make_map).
+inline CUresult win_triple_maps(CUtensorMap (&m)[3], int& b_head, int& c_head, const void* a,
+                                const void* b, const void* c, int nB, int H, long long sw,
+                                long long sn) {
+  const long long C = (long long)H * WIN_HD * 2;  // bytes of a token's channels
+  const char* base = static_cast<const char*>(a);
+  if (static_cast<const char*>(b) == base + C && static_cast<const char*>(c) == base + 2 * C) {
+    b_head = H;
+    c_head = 2 * H;
+    const CUresult res = make_map<WIN_HD>(&m[0], a, nB, WIN_TOKENS, 3 * H, sw, sn, WIN_HD);
+    m[1] = m[0];
+    m[2] = m[0];
+    return res;
+  }
+  b_head = c_head = 0;
+  CUresult res = make_map<WIN_HD>(&m[0], a, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
+  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m[1], b, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
+  if (res == CUDA_SUCCESS) res = make_map<WIN_HD>(&m[2], c, nB, WIN_TOKENS, H, sw, sn, WIN_HD);
   return res;
 }
 

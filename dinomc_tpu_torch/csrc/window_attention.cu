@@ -21,13 +21,14 @@
 // K7's design: the TPU kernel packs G windows into one (G*49)^2 score
 // product behind a block-diagonal mask and folds bias and mask into the
 // product, all to fill a 128x128 systolic array. None of that carries over.
-// Here K7 is hopper_window.cuh's window_fwd_block with one head a block: a
-// producer warp TMA-loads each window's 64-row Q, K and V boxes (rows 49-63
-// arrive as zeros) through a ring of WIN_FWD_STAGES mbarrier-tracked stages
-// and copies its mask beside them by cp.async; one consumer warpgroup forms
-// S with wgmma, the exact f32 softmax in registers (bias[h] once a block in
-// shared memory), and O = P V with P rounded to bf16, as `_fwd_kernel`
-// does, as the register A operand; no cross-window score is ever formed.
+// Here K7 is hopper_window.cuh's window_fwd_block with one head a block
+// (the body K9 runs with a chunk of heads): a producer warp TMA-loads each
+// window's 64-row Q, K and V boxes (rows 49-63 arrive as zeros) through a
+// ring of WIN_FWD_STAGES mbarrier-tracked stages and copies its mask
+// beside them by cp.async; one consumer warpgroup forms S with wgmma, the
+// exact f32 softmax in registers (bias[h] once a block in shared memory),
+// and O = P V with P rounded to bf16, as `_fwd_kernel` does, as the
+// register A operand; no cross-window score is ever formed.
 // O is staged in the window's Q box and leaves by a TMA store that clips
 // rows past 49 (3-5% ahead of writing it from registers). Like K8 it reads
 // Swin's q/k/v column slices through one tensor map over the (nB, 49, 3C)
@@ -144,29 +145,6 @@ cudaError_t bwd_allow_smem() {
   return hopper::allow_smem(win_bwd_kernel, BWD_SMEM, done);
 }
 
-// The maps of one (q, k, v) or (dq, dk, dv) triple of (nB, 49, H * 32)
-// views with strides (sw, sn): one map over 3H heads when k and v follow q
-// by C and 2C channels (column slices of one (nB, 49, 3C) tensor), with k
-// and v at head offsets H and 2H; else a map each.
-CUresult triple_maps(CUtensorMap* m, int& k_head, int& v_head, const void* a, const void* b,
-                     const void* c, int nB, int H, long long sw, long long sn) {
-  const long long C = (long long)H * HD * 2;  // bytes of a token's channels
-  const char* base = static_cast<const char*>(a);
-  if (static_cast<const char*>(b) == base + C && static_cast<const char*>(c) == base + 2 * C) {
-    k_head = H;
-    v_head = 2 * H;
-    const CUresult res = hopper::make_map<HD>(&m[0], a, nB, WW, 3 * H, sw, sn, HD);
-    m[1] = m[0];
-    m[2] = m[0];
-    return res;
-  }
-  k_head = v_head = 0;
-  CUresult res = hopper::make_map<HD>(&m[0], a, nB, WW, H, sw, sn, HD);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<HD>(&m[1], b, nB, WW, H, sw, sn, HD);
-  if (res == CUDA_SUCCESS) res = hopper::make_map<HD>(&m[2], c, nB, WW, H, sw, sn, HD);
-  return res;
-}
-
 }  // namespace
 
 // Blocks of K7 that one SM of `device` holds at once, or minus a
@@ -195,7 +173,7 @@ extern "C" int dinomc_win_attn_fwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap in[3], o_map;
   int k_head, v_head;
-  CUresult res = triple_maps(in, k_head, v_head, q, k, v, nB, H, sw, sn);
+  CUresult res = hopper::win_triple_maps(in, k_head, v_head, q, k, v, nB, H, sw, sn);
   if (res == CUDA_SUCCESS) res = hopper::make_map<HD>(&o_map, o, nB, WW, H);
   if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
   err = fwd_allow_smem();
@@ -236,8 +214,9 @@ extern "C" int dinomc_win_attn_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = (cudaStream_t)stream;
   CUtensorMap in[3], grad[3], dout_map;
   int k_head, v_head, dk_head, dv_head;
-  CUresult res = triple_maps(in, k_head, v_head, q, k, v, nB, H, sw, sn);
-  if (res == CUDA_SUCCESS) res = triple_maps(grad, dk_head, dv_head, dq, dk, dv, nB, H, gsw, gsn);
+  CUresult res = hopper::win_triple_maps(in, k_head, v_head, q, k, v, nB, H, sw, sn);
+  if (res == CUDA_SUCCESS)
+    res = hopper::win_triple_maps(grad, dk_head, dv_head, dq, dk, dv, nB, H, gsw, gsn);
   if (res == CUDA_SUCCESS) res = hopper::make_map<HD>(&dout_map, dout, nB, WW, H);
   if (res != CUDA_SUCCESS) return hopper::MAP_ERROR + (int)res;
   err = bwd_allow_smem();

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "dinomc_win_attn_fwd_per_sm": [_I],
     "dinomc_win_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 4 + [_F, _P, _I],
     "dinomc_win_attn_bwd_per_sm": [_I],
-    "dinomc_wins_attn_fwd": [_P] * 6 + [_I] * 6 + [_L] * 4 + [_F, _P],
-    "dinomc_wins_attn_bwd": [_P] * 11 + [_I] * 6 + [_L] * 2 + [_F, _P, _I],
+    "dinomc_wins_attn_fwd": [_P] * 6 + [_I] * 6 + [_L] * 2 + [_F, _P, _I],
+    "dinomc_wins_attn_fwd_per_sm": [_I, _I],
+    "dinomc_wins_attn_bwd": [_P] * 11 + [_I] * 6 + [_L] * 4 + [_F, _P, _I],
     "dinomc_wins_attn_bwd_per_sm": [_I, _I],
     "dinomc_fused_mlp": [_P] * 6 + [_I] * 4 + [_P, _I],
 }

@@ -10,13 +10,14 @@ V over 49-token windows, heads of 32 channels; the two variants compute the
 same function. The TPU kernel packed G windows into one score product behind
 a block-diagonal mask; the CUDA kernels compute one window at a time, so
 nothing of that packing (``pick_group``, the rank-49 augmentation, the
-stacked variant's block-stacked K'/V' operands) is kept. K7/K8 give a block
-one head over many windows; K9/K10 give a block a chunk of heads of each of
-its windows, one warp a head (K9) or one warpgroup a head (K10). K7 runs
-the forward body on wgmma and TMA (``csrc/hopper_window.cuh``,
-``window_fwd_block``) with one head a block; K8 and K10 run one backward
-body (``window_bwd_block``), K8 with one head a block. K7, K8 and K10 size
-their grid to one wave of resident blocks.
+stacked variant's block-stacked K'/V' operands) is kept. All four run on
+wgmma and TMA (``csrc/hopper_window.cuh``): the forwards on
+``window_fwd_block``, the backwards on ``window_bwd_block``, one consumer
+warpgroup a head. K7/K8 give a block one head over many windows; K9/K10 give
+a block a chunk of heads of each of its windows (``STACKED_HEADS``), whose
+mask and loads one producer warp serves. Every kernel reads Swin's q/k/v
+column slices through one tensor map over the qkv tensor and sizes its grid
+to one wave of resident blocks.
 The backward's dbias comes from per-block partials summed in a fixed order
 (no atomics) and stays in f32; the TPU kernels round dS to bf16 before
 summing it.
@@ -40,11 +41,12 @@ from dinomc_tpu_torch.ops.hopper import _build
 
 WINDOW_TOKENS = 49  # a 7 x 7 window
 HEAD_DIM = 32
-BLOCKS_PER_SM = 4  # blocks the window range is cut into, per SM (K9)
-# Most heads a block of K9 / K10 takes (csrc/window_attention_stacked.cu):
-# K9 holds up to 8, K10 up to 3 in shared memory; K10's is timed against 1
-# and 2 by scripts/attention_variants.py (PERF.md).
-STACKED_HEADS = {"fwd": 8, "bwd": 3}
+# Most heads a block of K9 / K10 takes (csrc/window_attention_stacked.cu
+# instantiates K9 for 1, 2, 3, 4 and 6 heads, K10 for 1 to 3: what fits in
+# shared memory), each timed against the others by
+# scripts/attention_variants.py (PERF.md): K9's 1, 3 and 6 tie over a
+# Swin-T step's stages, and 3 is the fastest at stage 1.
+STACKED_HEADS = {"fwd": 3, "bwd": 3}
 
 
 def window_attention_reference(
@@ -73,13 +75,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None,
-                 per_sm: int = BLOCKS_PER_SM):
+def _kernel_args(q, k, v, bias, mask, heads: int, chunks: int, per_sm: int):
     """Validate the kernels' inputs; returns (q, k, v, bias, mask, geometry)
     with geometry = (nB, nW, mask_rows, wpc, sw, sn), copying q/k/v only
     when they do not share a kernel-readable layout. ``chunks``: the blocks
     a window's heads take (``heads`` for K7/K8, one a head); ``per_sm``:
-    the blocks the windows are cut into, per SM."""
+    the blocks an SM holds at once, so the grid is one wave."""
     name = "window_attention"
     _build.require_cuda(name, q, k, v, bias, *(() if mask is None else (mask,)))
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -108,16 +109,19 @@ def _kernel_args(q, k, v, bias, mask, heads: int, chunks: Optional[int] = None,
     if not ok:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     blocks = per_sm * _sm_count(q.device.index or 0)
-    wpc = max(1, -(-nB * (chunks or heads) // blocks))
+    wpc = max(1, -(-nB * chunks // blocks))
     return q, k, v, bias.contiguous(), mask, (nB, nW, mask_rows, wpc) + q.stride()[:2]
 
 
 @functools.cache
-def _fwd_per_sm(index: int) -> int:
-    """Blocks of K7 that one SM holds at once."""
-    n = _build.library().dinomc_win_attn_fwd_per_sm(index)
+def _per_sm(entry: str, index: int, *hc: int) -> int:
+    """Blocks that one SM of device ``index`` holds at once of the kernel
+    whose occupancy the C function ``entry`` reports (with ``hc`` heads a
+    block for K9 / K10)."""
+    n = getattr(_build.library(), entry)(*hc, index)
     if n <= 0:
-        raise RuntimeError(f"window attention forward: no block fits an SM (CUDA error {-n})")
+        raise RuntimeError(f"window attention ({entry}{hc or ''}): no block fits an SM "
+                           f"(CUDA error {-n})")
     return n
 
 
@@ -125,9 +129,9 @@ def window_attention_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
     """K7: returns o, (nB, 49, C) bf16 contiguous. The windows are cut into
     one wave of resident blocks."""
     _build.require_cuda("window_attention", q)
-    per_sm = _fwd_per_sm(q.device.index or 0)
+    per_sm = _per_sm("dinomc_win_attn_fwd_per_sm", q.device.index or 0)
     q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
-        q, k, v, bias, mask, heads, per_sm=per_sm)
+        q, k, v, bias, mask, heads, heads, per_sm)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.library().dinomc_win_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -140,24 +144,15 @@ def window_attention_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
     return o
 
 
-@functools.cache
-def _bwd_per_sm(index: int) -> int:
-    """Blocks of K8 that one SM holds at once."""
-    n = _build.library().dinomc_win_attn_bwd_per_sm(index)
-    if n <= 0:
-        raise RuntimeError(f"window attention backward: no block fits an SM (CUDA error {-n})")
-    return n
-
-
 def window_attention_bwd(q, k, v, bias, mask, do, heads: int):
     """K8 (and its fixed-order dbias reduction): returns (dq, dk, dv), each
     (nB, 49, C) bf16, the column slices of one (nB, 49, 3C) buffer, and
     dbias (heads, 49, 49) f32. The windows are cut into one wave of resident
     blocks."""
     _build.require_cuda("window_attention", q)
-    per_sm = _bwd_per_sm(q.device.index or 0)
+    per_sm = _per_sm("dinomc_win_attn_bwd_per_sm", q.device.index or 0)
     q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
-        q, k, v, bias, mask, heads, per_sm=per_sm)
+        q, k, v, bias, mask, heads, heads, per_sm)
     do = do.to(torch.bfloat16).contiguous()
     C = q.shape[-1]
     grads = torch.empty((nB, WINDOW_TOKENS, 3 * C), dtype=q.dtype, device=q.device)
@@ -184,43 +179,41 @@ def head_chunk(heads: int, most: int) -> int:
 
 
 def window_attention_stacked_fwd(q, k, v, bias, mask, heads: int) -> torch.Tensor:
-    """K9: returns o, (nB, 49, C) bf16 contiguous."""
+    """K9: returns o, (nB, 49, C) bf16 contiguous. A block takes
+    ``head_chunk(heads, STACKED_HEADS["fwd"])`` heads; the windows are cut
+    into one wave of resident blocks."""
     hc = head_chunk(heads, STACKED_HEADS["fwd"])
+    _build.require_cuda("window_attention", q)
+    per_sm = _per_sm("dinomc_wins_attn_fwd_per_sm", q.device.index or 0, hc)
     q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
-        q, k, v, bias, mask, heads, heads // hc)
+        q, k, v, bias, mask, heads, heads // hc, per_sm)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = _build.library().dinomc_wins_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), o.data_ptr(),
-        nB, heads, hc, nW, mask_rows, wpc, sw, sn, o.stride(0), o.stride(1),
-        1.0 / math.sqrt(HEAD_DIM), _build.stream_handle(q),
+        nB, heads, hc, nW, mask_rows, wpc, sw, sn, 1.0 / math.sqrt(HEAD_DIM),
+        _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "stacked window attention forward")
     _build.LAUNCHES["window_attention_stacked_fwd"] += 1
     return o
 
 
-@functools.cache
-def _stacked_bwd_per_sm(hc: int, index: int) -> int:
-    """Blocks of K10 with ``hc`` heads that one SM holds at once."""
-    n = _build.library().dinomc_wins_attn_bwd_per_sm(hc, index)
-    if n <= 0:
-        raise RuntimeError(f"stacked window attention backward: no block of {hc} heads fits "
-                           f"an SM (CUDA error {-n})")
-    return n
-
-
 def window_attention_stacked_bwd(q, k, v, bias, mask, do, heads: int):
     """K10 (and its fixed-order dbias reduction): returns (dq, dk, dv), each
-    (nB, 49, C) bf16 contiguous, and dbias (heads, 49, 49) f32. The windows
-    are cut into one wave of resident blocks."""
+    (nB, 49, C) bf16, the column slices of one (nB, 49, 3C) buffer, and
+    dbias (heads, 49, 49) f32. A block takes
+    ``head_chunk(heads, STACKED_HEADS["bwd"])`` heads; the windows are cut
+    into one wave of resident blocks."""
     hc = head_chunk(heads, STACKED_HEADS["bwd"])
     _build.require_cuda("window_attention", q)
-    per_sm = _stacked_bwd_per_sm(hc, q.device.index or 0)
+    per_sm = _per_sm("dinomc_wins_attn_bwd_per_sm", q.device.index or 0, hc)
     q, k, v, bias, mask, (nB, nW, mask_rows, wpc, sw, sn) = _kernel_args(
         q, k, v, bias, mask, heads, heads // hc, per_sm)
     do = do.to(torch.bfloat16).contiguous()
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    C = q.shape[-1]
+    grads = torch.empty((nB, WINDOW_TOKENS, 3 * C), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grads[..., :C], grads[..., C:2 * C], grads[..., 2 * C:]
     part = torch.empty((-(-nB // wpc), heads, WINDOW_TOKENS, WINDOW_TOKENS),
                        dtype=torch.float32, device=q.device)
     dbias = torch.empty((heads, WINDOW_TOKENS, WINDOW_TOKENS), dtype=torch.float32, device=q.device)
@@ -228,7 +221,8 @@ def window_attention_stacked_bwd(q, k, v, bias, mask, do, heads: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), nB, heads, hc, nW, mask_rows,
-        wpc, sw, sn, 1.0 / math.sqrt(HEAD_DIM), _build.stream_handle(q), q.device.index,
+        wpc, sw, sn, grads.stride(0), grads.stride(1), 1.0 / math.sqrt(HEAD_DIM),
+        _build.stream_handle(q), q.device.index,
     )
     _build.check(err, "stacked window attention backward")
     _build.LAUNCHES["window_attention_stacked_bwd"] += 1

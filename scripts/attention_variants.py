@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the hand-written kernels K1-K8, K10 and K11 on one GPU.
+"""Time variants of the hand-written kernels K1-K11 on one GPU.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -12,24 +12,27 @@ constants in ``dinomc_tpu_torch/csrc/*.cu`` (``PHOTO_THREADS``,
 ``ATTN_FWD_STAGES`` for K1; ``BWD_WGS``, ``BWD_STAGES`` for K2; ``FWD_WGS``,
 ``FWD_STAGES`` for K4; ``DQ_WGS``, ``DQ_KEYS``, ``DQ_STAGES`` for K5;
 ``DKV_WGS``, ``DKV_STAGES`` for K6; ``WIN_FWD_STAGES`` for K7;
-``WIN_BWD_STAGES`` for K8;
+``WIN_BWD_STAGES`` for K8; ``WINS_FWD_STAGES`` for K9;
 ``WINS_BWD_STAGES`` for K10; ``MLP384_ROW_GROUPS``, ``MLP384_COL_SPLIT``,
 ``MLP384_CHUNK``, ``MLP384_STAGES`` for K11 at the ViT-S width; ...), and
-of ``STACKED_BWD_HEADS``, K10's most heads a block
-(``ops/hopper/window_attention.STACKED_HEADS["bwd"]``). Each variant runs in
-a process of its own that copies ``csrc/`` to a temporary directory,
-rewrites the constants there, builds that library and, on chip_smoke.py's
-shapes, checks each kernel of ``--kernels`` (default all ten) against its
-plain version with chip_smoke.py's bounds and times it as chip_smoke.py
-does (device time, CUDA events behind a spin kernel): K3 with the flip at
-every crop size of phase 3 (also with the host's cost); K1 and K2 at the five
-main-path shapes of phase 2, K4, K5 and K6 at the first three of phase 5,
-K7, K8 and K10 at the four 224 px stages of phase 7 (K7 also with the
-host's cost), K11 at the ViT-S rows of phase 9 beside the dense
-``F.linear``, ``F.gelu``, ``F.linear`` chain; K2, K3, K5, K6, K7, K8 and
-K10 also bit-identical on a repeated call. The variants run
-in the order given and then in reverse (A B B A), so a drift of the card's
-speed falls on each alike.
+of ``STACKED_FWD_HEADS`` and ``STACKED_BWD_HEADS``, K9's and K10's most
+heads a block (``ops/hopper/window_attention.STACKED_HEADS``). Each variant
+runs in a process of its own that copies ``csrc/`` to a temporary
+directory, rewrites the constants there and builds that library (into the
+package's build directory, named by the sources' hash, so a variant that
+differs only in the Python constants, or comes round again, reuses it).
+On chip_smoke.py's shapes, it checks each kernel of ``--kernels`` (default
+all eleven) against its plain version with chip_smoke.py's bounds and times
+it as chip_smoke.py does (device time, CUDA events behind a spin kernel):
+K3 with the flip at every crop size of phase 3 (also with the host's
+cost); K1 and K2 at the five main-path shapes of phase 2, K4, K5 and K6 at
+the first three of phase 5, K7, K8, K9 and K10 at the four 224 px stages of
+phase 7 (K7 and K9 also with the host's cost, and weighed 2/2/6/2 over the
+stages as a Swin-T step launches them), K11 at the ViT-S rows of phase 9
+beside the dense ``F.linear``, ``F.gelu``, ``F.linear`` chain; K2, K3, K5,
+K6, K7, K8, K9 and K10 also bit-identical on a repeated call. The variants
+run in the order given and then in reverse (A B B A), so a drift of the
+card's speed falls on each alike.
 """
 
 from __future__ import annotations
@@ -45,8 +48,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10", "K11")
-HEADS_KNOB = "STACKED_BWD_HEADS"  # a Python constant, not a csrc one
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")
+# Python constants, not csrc ones: the knob -> its STACKED_HEADS key
+HEADS_KNOBS = {"STACKED_FWD_HEADS": "fwd", "STACKED_BWD_HEADS": "bwd"}
+STAGE_WEIGHTS = (2, 2, 6, 2)  # Swin-T's blocks a stage
 
 
 def _patched_csrc(variant: str, src: Path, dst: Path) -> None:
@@ -55,7 +60,7 @@ def _patched_csrc(variant: str, src: Path, dst: Path) -> None:
     shutil.copytree(src, dst)
     for item in variant.split():
         name, value = item.split("=")
-        if name == HEADS_KNOB:
+        if name in HEADS_KNOBS:
             continue
         pattern = re.compile(rf"constexpr int {name} = [^;]+;")
         hits = 0
@@ -160,21 +165,27 @@ def _long(torch, cs, hl, tag, kernels):
 
 
 def _window(torch, cs, wa, tag, kernels):
+    forwards = [(name, fn) for name, fn in (("K7", wa.window_attention_fwd),
+                                            ("K9", wa.window_attention_stacked_fwd))
+                if name in kernels]
     launchers = [(name, fn) for name, fn in (("K8", wa.window_attention_bwd),
                                              ("K10", wa.window_attention_stacked_bwd))
                  if name in kernels]
+    weighed = {}
     for i, (what, nB, heads, side, shift) in enumerate(cs.SWIN_SHAPES[:4]):
         q, k, v, bias, mask, do = cs._window_inputs(torch, nB, heads, side, shift, 300 + i)
-        if "K7" in kernels:
-            o, again = (wa.window_attention_fwd(q, k, v, bias, mask, heads) for _ in range(2))
-            ref = wa.window_attention_reference(q, k, v, bias, mask, heads)
+        ref = wa.window_attention_reference(q, k, v, bias, mask, heads)
+        for name, fwd in forwards:
+            o, again = (fwd(q, k, v, bias, mask, heads) for _ in range(2))
             err = (o.float() - ref.float()).abs().max().item()
             if not (err <= cs.ATTN_FWD_ATOL and torch.equal(o, again)):
-                raise AssertionError(f"{tag} K7 disagrees with its plain version at {what}")
-            t = cs._time_ms(torch, lambda: wa.window_attention_fwd(q, k, v, bias, mask, heads))
-            host = cs._host_ms(torch, lambda: wa.window_attention_fwd(q, k, v, bias, mask, heads))
-            print(f"{tag} K7 {what}: max|diff| {err:.3e}, repeat bit-identical  ms {t:.4f}  "
-                  f"host ms {host:.4f}", flush=True)
+                raise AssertionError(f"{tag} {name} disagrees with its plain version at {what}")
+            t = cs._time_ms(torch, lambda: fwd(q, k, v, bias, mask, heads))
+            host = cs._host_ms(torch, lambda: fwd(q, k, v, bias, mask, heads))
+            hc = 1 if name == "K7" else wa.head_chunk(heads, wa.STACKED_HEADS["fwd"])
+            weighed[name] = weighed.get(name, 0.0) + STAGE_WEIGHTS[i] * t
+            print(f"{tag} {name} {what} ({hc} heads a block): max|diff| {err:.3e}, repeat "
+                  f"bit-identical  ms {t:.4f}  host ms {host:.4f}", flush=True)
         xs = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
         ref = torch.autograd.grad(wa.window_attention_reference(*xs, mask, heads), xs, do)
         for name, bwd in launchers:
@@ -185,9 +196,13 @@ def _window(torch, cs, wa, tag, kernels):
                 raise AssertionError(f"{tag} {name} disagrees with its plain version at {what}")
             t = cs._time_ms(torch, lambda: bwd(q, k, v, bias, mask, do, heads))
             hc = 1 if name == "K8" else wa.head_chunk(heads, wa.STACKED_HEADS["bwd"])
+            weighed[name] = weighed.get(name, 0.0) + STAGE_WEIGHTS[i] * t
             print(f"{tag} {name} {what} ({hc} heads a block): max rel {rel:.3e}, repeat "
                   f"bit-identical  ms {t:.4f}", flush=True)
         del xs, ref
+    for name, total in weighed.items():
+        print(f"{tag} {name} weighed {'/'.join(map(str, STAGE_WEIGHTS))} over stages 1-4: "
+              f"ms {total:.4f}", flush=True)
 
 
 def _mlp(torch, cs, fm, tag):
@@ -224,9 +239,9 @@ def _child(variant: str, kernels: list) -> None:
         _patched_csrc(variant, _build.CSRC_DIR, tmp / "csrc")
         for item in variant.split():
             name, value = item.split("=")
-            if name == HEADS_KNOB:
-                wa.STACKED_HEADS["bwd"] = int(value)
-        _build.CSRC_DIR, _build.BUILD_DIR = tmp / "csrc", tmp / "build"
+            if name in HEADS_KNOBS:
+                wa.STACKED_HEADS[HEADS_KNOBS[name]] = int(value)
+        _build.CSRC_DIR = tmp / "csrc"
         _build.library()
         tag = f"[{variant}]"
         if "K3" in kernels:
@@ -235,7 +250,7 @@ def _child(variant: str, kernels: list) -> None:
             _short(torch, cs, ha, tag, kernels)
         if {"K4", "K5", "K6"} & set(kernels):
             _long(torch, cs, hl, tag, kernels)
-        if {"K7", "K8", "K10"} & set(kernels):
+        if {"K7", "K8", "K9", "K10"} & set(kernels):
             _window(torch, cs, wa, tag, kernels)
         if "K11" in kernels:
             _mlp(torch, cs, fm, tag)

@@ -12,6 +12,7 @@ K7/K8 and K9/K10 are held to the plain version on the card
 """
 
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -122,12 +123,34 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         wa.window_attention(q, q, q, bias, None, 3, "blocked")
 
 
-@pytest.mark.parametrize("heads,fwd,bwd", [(3, 3, 3), (6, 6, 3), (12, 6, 3), (24, 8, 3), (2, 2, 2)])
+@pytest.mark.parametrize("heads,fwd,bwd", [(3, 3, 3), (6, 3, 3), (12, 3, 3), (24, 3, 3), (2, 2, 2)])
 def test_stacked_head_chunks(heads, fwd, bwd):
-    """K9 holds up to 8 heads a block, K10 up to 3, always a divisor of the
-    head count: Swin-T's stages take 1/1/2/3 and 1/2/4/8 chunks."""
+    """K9 and K10 each take up to 3 heads a block, always a divisor of the
+    head count: Swin-T's stages take 1/2/4/8 chunks."""
     assert wa.head_chunk(heads, wa.STACKED_HEADS["fwd"]) == fwd
     assert wa.head_chunk(heads, wa.STACKED_HEADS["bwd"]) == bwd
+
+
+def _instantiated(direction):
+    """The head chunks csrc/window_attention_stacked.cu launches and sizes
+    for K9 (``fwd``) or K10 (``bwd``): the templates its switches reach."""
+    src = (_build.CSRC_DIR / "window_attention_stacked.cu").read_text()
+    launched = set(map(int, re.findall(rf"launch_wins_{direction}<(\d+)>\(", src)))
+    sized = set(map(int, re.findall(rf"return wins_{direction}_per_sm<(\d+)>\(\)", src)))
+    assert launched == sized, (launched, sized)
+    return launched
+
+
+@pytest.mark.parametrize("heads", [2, 3, 6, 12, 24])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_stacked_chunks_are_instantiated(direction, heads):
+    """Every chunk the wrapper picks for Swin-T's head counts (and the
+    ragged cases' 2) is one the C side instantiates (K9: 1, 2, 3, 4 or 6
+    heads, what fits in shared memory; K10: 1 to 3), so none reaches a
+    launch that refuses."""
+    chunk = wa.head_chunk(heads, wa.STACKED_HEADS[direction])
+    assert chunk in _instantiated(direction)
+    assert chunk <= {"fwd": 6, "bwd": 3}[direction]
 
 
 # (what, nB, heads, mask kind); the first four are the stage shapes of the
@@ -222,22 +245,23 @@ def test_perhead_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [True, False], ids=["mask", "no-mask"])
-@pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES + [("ragged 1029", 1029, 3, ("shift", 49))])
-def test_perhead_fwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, masked):
-    """K7 has no atomics: two calls on the same inputs give the same bits,
-    with the shape's mask and without one; and q, k, v as column slices of
-    one qkv tensor (one tensor map for the three) give the same bits as q,
-    k, v copied to tensors of their own (a map each)."""
+@pytest.mark.parametrize("what,nB,heads,kind,variant",
+                         _variants(CARD_SHAPES + [("ragged 1029", 1029, 3, ("shift", 49))]))
+def test_perhead_fwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, variant, masked):
+    """K7 and K9 have no atomics: two calls on the same inputs give the same
+    bits, with the shape's mask and without one; and q, k, v as column
+    slices of one qkv tensor (one tensor map for the three) give the same
+    bits as q, k, v copied to tensors of their own (a map each)."""
+    fwd = {"perhead": wa.window_attention_fwd, "stacked": wa.window_attention_stacked_fwd}[variant]
     C = heads * 32
     gen = torch.Generator(device="cuda").manual_seed(3 * nB + heads)
     qkv = torch.randn(nB, WW, 3 * C, generator=gen, device="cuda").bfloat16()
     bias = 0.1 * torch.randn(heads, WW, WW, generator=gen, device="cuda")
     mask = card_mask(kind, cuda_device) if masked else None
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
-    first = wa.window_attention_fwd(q, k, v, bias, mask, heads)
-    again = wa.window_attention_fwd(q, k, v, bias, mask, heads)
-    apart = wa.window_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, mask,
-                                    heads)
+    first = fwd(q, k, v, bias, mask, heads)
+    again = fwd(q, k, v, bias, mask, heads)
+    apart = fwd(q.contiguous(), k.contiguous(), v.contiguous(), bias, mask, heads)
     torch.cuda.synchronize()
     assert torch.equal(first, again), what
     assert torch.equal(first, apart), f"{what}, q/k/v apart"
@@ -250,7 +274,9 @@ def test_perhead_fwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind
 @pytest.mark.parametrize("what,nB,heads,kind", CARD_SHAPES)
 def test_stacked_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind, masked):
     """K10 has no atomics: two calls on the same inputs give the same dq, dk,
-    dv and dbias bits, with the shape's mask and without one."""
+    dv and dbias bits, with the shape's mask and without one; and q, k, v
+    as column slices of one qkv tensor (one tensor map for the three) give
+    the same bits as q, k, v copied to tensors of their own (a map each)."""
     C = heads * 32
     gen = torch.Generator(device="cuda").manual_seed(7 * nB + heads)
     qkv = torch.randn(nB, WW, 3 * C, generator=gen, device="cuda").bfloat16()
@@ -260,6 +286,9 @@ def test_stacked_bwd_is_deterministic_on_card(cuda_device, what, nB, heads, kind
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     first = wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)
     again = wa.window_attention_stacked_bwd(q, k, v, bias, mask, do, heads)
+    apart = wa.window_attention_stacked_bwd(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                                            mask, do, heads)
     torch.cuda.synchronize()
-    for a, b, name in zip(first, again, ("dq", "dk", "dv", "dbias")):
+    for a, b, c, name in zip(first, again, apart, ("dq", "dk", "dv", "dbias")):
         assert torch.equal(a, b), f"{what} {name}"
+        assert torch.equal(a, c), f"{what} {name}, q/k/v apart"
