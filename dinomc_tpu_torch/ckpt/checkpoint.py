@@ -5,10 +5,12 @@ whole train state goes through ``torch.save`` into
 ``<dir>/ckpt_<step>.pth``. For a ``DinoTrainState`` that is the student,
 teacher, AdamW moments and counts, centre, step and DropPath generator; for
 a ``SegTrainState`` the UPerNet (parameters and BatchNorm statistics), AdamW
-state, step and dropout generator. The newest ``max_to_keep`` files are
-kept, plus every multiple of ``keep_period``; with ``best_mode='max'`` the
-``max_to_keep`` files of highest metric are kept instead (the seg trainer's
-best-mIoU checkpoint). A rerun with the same directory resumes from the
+state, step and dropout generator; for a ``ClsTrainState`` the backbone and
+classifier, optimizer state, step and generator. The newest ``max_to_keep``
+files are kept, plus every multiple of ``keep_period``; with
+``best_mode='max'`` the ``max_to_keep`` files of highest metric are kept
+instead (the seg trainer's best-mIoU and the EuroSAT CLI's best-accuracy
+checkpoint). A rerun with the same directory resumes from the
 newest file (the reference's ``restart_from_checkpoint``,
 ``utils/utils.py:165-197``). Files are written to a temporary name and
 renamed, so a crash never leaves a half-written checkpoint as the newest.
@@ -24,22 +26,26 @@ from typing import List, Optional, Union
 
 import torch
 
+from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
 from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pth$")
-TrainState = Union[DinoTrainState, SegTrainState]
+TrainState = Union[DinoTrainState, SegTrainState, ClsTrainState]
 
 
 def _load_opt_state(opt_state: dict, saved: dict) -> None:
-    for kind in ("mu", "nu"):
-        for name, t in saved[kind].items():
+    """AdamW's moments and counts, or SGD's momentum buffers."""
+    for kind, entries in saved.items():
+        if kind == "count":
+            opt_state["count"] = dict(entries)
+            continue
+        for name, t in entries.items():
             opt_state[kind][name].copy_(t)
-    opt_state["count"] = dict(saved["count"])
 
 
 def state_to_dict(state: TrainState) -> dict:
-    if isinstance(state, SegTrainState):
+    if isinstance(state, (SegTrainState, ClsTrainState)):
         return {
             "step": int(state.step),
             "model": state.model.state_dict(),
@@ -62,7 +68,7 @@ def load_state_dict_into(state: TrainState, saved: dict) -> None:
     _load_opt_state(state.opt_state, saved["opt_state"])
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
-    if isinstance(state, SegTrainState):
+    if isinstance(state, (SegTrainState, ClsTrainState)):
         state.model.load_state_dict(saved["model"], strict=True)
         return
     state.student.load_state_dict(saved["student"], strict=True)

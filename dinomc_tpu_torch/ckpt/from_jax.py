@@ -28,7 +28,7 @@ from dinomc_tpu_torch.models.dino_head import DINOHead
 from dinomc_tpu_torch.models.swin import SwinTransformer
 from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
-from dinomc_tpu_torch.train import optim
+from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
 from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
@@ -40,7 +40,8 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
     a ViT or Swin tree, a DINO-head tree, a ``{'backbone', 'head'}`` tree
-    (ViT or Swin backbone), or a UPerNet's ``(params, bn_state)``."""
+    (ViT or Swin backbone), a classifier's ``{'backbone', 'fc'}`` tree, or a
+    UPerNet's ``(params, bn_state)``."""
     backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict}
     if isinstance(module, UPerNet):
         return _tensors(upernet_state_dict(*params))
@@ -52,7 +53,22 @@ def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tenso
         sd = backbones[type(module["backbone"])](params["backbone"], "backbone.")
         sd.update(dino_head_state_dict(params["head"], "head."))
         return _tensors(sd)
+    if isinstance(module, nn.ModuleDict) and set(module.keys()) == {"backbone", "fc"}:
+        sd = backbones[type(module["backbone"])](params["backbone"], "backbone.")
+        sd.update({f"fc.{k}": np.asarray(v) for k, v in params["fc"].items()})
+        return _tensors(sd)
     raise TypeError(f"no JAX parameter mapping for {type(module).__name__}")
+
+
+@torch.no_grad()
+def _zero_opt_state(opt_state: dict) -> None:
+    """A freshly initialized optimizer state, whichever optimizer made it."""
+    for kind, entries in opt_state.items():
+        for name in entries:
+            if kind == "count":
+                entries[name] = 0
+            else:
+                entries[name].zero_()
 
 
 @torch.no_grad()
@@ -61,16 +77,20 @@ def load_jax_params(module_or_state, jax_params) -> None:
 
     For a ``DinoTrainState``, ``jax_params`` is a JAX ``DinoTrainState`` (or
     any object with ``student``, ``teacher``, ``center`` and ``step``):
-    student, teacher, centre and step are copied and the AdamW moments and
-    counts start from zero, as the JAX package's freshly initialized state
+    student, teacher, centre and step are copied and the optimizer state
+    starts from zero, as the JAX package's freshly initialized state
     has them. For a ``SegTrainState``, ``jax_params`` is a JAX
     ``SegTrainState``: parameters, BatchNorm statistics and step are copied,
-    the AdamW state starts from zero."""
-    if isinstance(module_or_state, SegTrainState):
+    the AdamW state starts from zero. For a ``ClsTrainState``, a JAX
+    ``ClsTrainState``: backbone, classifier and step are copied, the
+    optimizer state starts from zero."""
+    if isinstance(module_or_state, (SegTrainState, ClsTrainState)):
         st = module_or_state
-        load_jax_params(st.model, (jax_params.params, jax_params.bn_state))
+        is_seg = isinstance(st, SegTrainState)
+        load_jax_params(st.model, (jax_params.params, jax_params.bn_state) if is_seg
+                        else jax_params.params)
         st.step = int(np.asarray(jax_params.step))
-        st.opt_state = optim.adamw_init(dict(st.model.named_parameters()))
+        _zero_opt_state(st.opt_state)
         return
     if isinstance(module_or_state, DinoTrainState):
         st = module_or_state
@@ -78,7 +98,7 @@ def load_jax_params(module_or_state, jax_params) -> None:
         load_jax_params(st.teacher, jax_params.teacher)
         st.center = torch.from_numpy(np.array(jax_params.center, np.float32)).to(st.center.device)
         st.step = int(np.asarray(jax_params.step))
-        st.opt_state = optim.adamw_init(dict(st.student.named_parameters()))
+        _zero_opt_state(st.opt_state)
         return
     module = module_or_state
     module.load_state_dict(state_dict_from_jax(module, jax_params), strict=True)

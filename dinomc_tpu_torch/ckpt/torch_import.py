@@ -6,6 +6,13 @@ Facebook DINO/DeiT files) and strips the ``module.`` and ``backbone.``
 prefixes; the JAX package's ``ckpt/torch_import.load_torch_state_dict`` does
 the same. The port's modules already carry the reference's names, so the
 result loads directly, with no JAX tree in between.
+
+A fine-tuned classifier (``main_eurosat.py:144-154``) is a full-model
+``state_dict`` with the classifier at ``head.weight`` / ``head.bias`` for
+ViT and Swin (``fc`` on torchvision convnets, ROADMAP.md queue 1 #13):
+``load_cls_checkpoint`` reads one into the port's ``{'backbone', 'fc'}``
+module, whose ``fc.kernel`` is ``head.weight`` transposed, and
+``save_cls_checkpoint`` writes one.
 """
 
 from __future__ import annotations
@@ -40,3 +47,40 @@ def load_backbone(module: nn.Module, path: str, checkpoint_key: Optional[str] = 
     if missing:
         raise KeyError(f"{path}: no tensor for {missing[:5]}{' ...' if len(missing) > 5 else ''}")
     module.load_state_dict({n: sd[n].float() for n in names}, strict=True)
+
+
+def cls_params_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference fine-tuned classifier's state dict (prefixes stripped)
+    -> the port's ``{'backbone', 'fc'}`` state dict."""
+    if "fc.weight" in sd and "head.weight" not in sd:
+        raise NotImplementedError(
+            "convnet classifiers are not ported yet (ROADMAP.md queue 1 #13)")
+    out = {f"backbone.{k}": v for k, v in sd.items() if not k.startswith("head.")}
+    out["fc.kernel"] = sd["head.weight"].T.contiguous()
+    out["fc.bias"] = sd["head.bias"]
+    return out
+
+
+@torch.no_grad()
+def load_cls_checkpoint(model: nn.Module, path: str) -> None:
+    """Load a reference fine-tuned classification checkpoint
+    (``{'state_dict': full model, ...}``) into ``model`` with
+    ``strict=True``."""
+    sd = cls_params_from_torch(load_torch_state_dict(path, checkpoint_key="state_dict"))
+    model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
+
+
+def save_cls_checkpoint(path: str, model: nn.Module, epoch: int = 0,
+                        best_acc: Optional[float] = None) -> str:
+    """Write ``model`` (``{'backbone', 'fc'}``) in the reference's
+    classification layout: ``{'epoch', 'state_dict', 'best_acc'}``, the
+    classifier at ``head.weight`` (C, D) and ``head.bias``."""
+    sd = {k[len("backbone."):]: v.detach().cpu()
+          for k, v in model.state_dict().items() if k.startswith("backbone.")}
+    sd["head.weight"] = model.state_dict()["fc.kernel"].detach().cpu().T.contiguous()
+    sd["head.bias"] = model.state_dict()["fc.bias"].detach().cpu()
+    save = {"epoch": int(epoch), "state_dict": sd}
+    if best_acc is not None:
+        save["best_acc"] = float(best_acc)
+    torch.save(save, path)
+    return path

@@ -1,12 +1,14 @@
-"""Shared CLI utilities: bool flags, seeding and the per-step record.
+"""Shared CLI utilities: bool flags, seeding, run directories, pretrained
+backbones and the per-step record.
 
-Counterpart of ``dinomc_tpu/cli/common.py`` (the parts the DINO CLI uses),
-plus ``StepLog``, which the JAX CLIs need not have (they keep one loss).
+Counterpart of ``dinomc_tpu/cli/common.py``, plus ``StepLog``, which the JAX
+CLIs need not have (they keep one loss).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import random
 
 import numpy as np
@@ -29,6 +31,27 @@ def set_seed(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def ensure_dir(path: str) -> str:
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def load_pretrained_backbone(module, path: str, checkpoint_key: str = "teacher") -> None:
+    """Load ``--pretrained_weights`` into the backbone ``module`` in place:
+    a reference ``.pth`` (``load_pretrained_weights`` parity,
+    ``utils/utils.py:75-119``). ``checkpoint_key``: 'teacher' (default),
+    'student' or 'none'. An orbax checkpoint directory of the JAX package
+    is refused: the port reads none (ROADMAP.md queue 1 #18)."""
+    from dinomc_tpu_torch.ckpt.torch_import import load_backbone
+
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path}: orbax checkpoint directories are not read by the port yet "
+            "(ROADMAP.md queue 1 #18); pass a .pth file")
+    key = None if checkpoint_key.lower() == "none" else checkpoint_key
+    load_backbone(module, path, checkpoint_key=key)
 
 
 class StepLog:

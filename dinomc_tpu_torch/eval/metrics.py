@@ -1,12 +1,14 @@
-"""Segmentation metrics.
+"""Segmentation and classification metrics.
 
-Counterpart of the segmentation part of ``dinomc_tpu/eval/metrics.py``:
-the fast-hist confusion matrix and ``cm2score`` (reference
-``utils/metric_tool.py:96-203``), the streaming per-class intersection /
-union / correct accumulators of the per-epoch validation
-(``evaluate.py:30-54``), and the console table. The confusion matrix and
-accumulators stay on the tensors' device; ``seg_stats_finalize`` reads them
-back once. Classification metrics wait for ROADMAP.md queue 1 #11.
+Counterpart of ``dinomc_tpu/eval/metrics.py``: the fast-hist confusion
+matrix and ``cm2score`` (reference ``utils/metric_tool.py:96-203``), the
+streaming per-class intersection / union / correct accumulators of the
+per-epoch validation (``evaluate.py:30-54``), the console table, and the
+classification metrics: top-k accuracy (``utils/utils.py:519-526``), the
+micro mAP of BigEarthNet (``main_bigearthnet.py:223-225``) and the streaming
+``ConfuseMatrixMeter`` (``utils/metric_tool.py:49-64``). The confusion
+matrix and accumulators stay on the tensors' device; ``seg_stats_finalize``
+reads them back once.
 """
 
 from __future__ import annotations
@@ -99,3 +101,61 @@ def format_class_metrics_table(class_names: Sequence[str], scores: Dict) -> str:
         + (f"   acc {scores['acc']*100:.2f}" if "acc" in scores else "")
     )
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# classification metrics
+# ---------------------------------------------------------------------------
+
+
+def topk_accuracy(
+    logits: torch.Tensor, target: torch.Tensor, topk: Sequence[int] = (1,)
+) -> Dict[int, torch.Tensor]:
+    """Top-k accuracy in percent, a device scalar per k (reference
+    ``utils/utils.py:519-526``)."""
+    _, pred = torch.topk(logits, max(topk), dim=1, sorted=True)  # (B, maxk)
+    correct = pred == target.reshape(-1, 1)
+    return {k: 100.0 * correct[:, :k].any(dim=1).float().mean() for k in topk}
+
+
+def average_precision(scores: np.ndarray, labels: np.ndarray) -> float:
+    """AP for one ranking (binary labels), sklearn-style step integration."""
+    order = np.argsort(-scores, kind="stable")
+    labels = labels[order]
+    tp = np.cumsum(labels)
+    n_pos = labels.sum()
+    if n_pos == 0:
+        return 0.0
+    precision = tp / np.arange(1, len(labels) + 1)
+    return float((precision * labels).sum() / n_pos)
+
+
+def micro_map(scores: np.ndarray, labels: np.ndarray) -> float:
+    """Micro-averaged mAP over a multi-label batch: every (sample, class)
+    decision in one ranking, as ``sklearn.average_precision_score(average=
+    'micro')`` (``main_bigearthnet.py:223-225``)."""
+    return average_precision(np.asarray(scores).reshape(-1), np.asarray(labels).reshape(-1))
+
+
+class ConfuseMatrixMeter:
+    """Streaming (weighted) confusion-matrix meter (reference
+    ``utils/metric_tool.py:49-64``): a running weighted sum of per-batch
+    confusion matrices on the host; ``update_cm`` returns the current
+    batch's mean F1 and ``get_scores`` scores the accumulated matrix."""
+
+    def __init__(self, n_class: int):
+        self.n_class = n_class
+        self.clear()
+
+    def update_cm(self, pr, gt, weight: float = 1.0) -> float:
+        cm = confusion_matrix(torch.as_tensor(pr), torch.as_tensor(gt), self.n_class).int()
+        self.sum += weight * cm.cpu().numpy()
+        self.count += weight
+        return float(cm2score(cm)["mf1"])
+
+    def get_scores(self) -> Dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in cm2score(torch.from_numpy(self.sum)).items()}
+
+    def clear(self) -> None:
+        self.sum = np.zeros((self.n_class, self.n_class), np.float64)
+        self.count = 0.0

@@ -1,11 +1,11 @@
-"""Segmentation losses over NHWC logits.
+"""Segmentation losses over NHWC logits, and the multi-label loss.
 
-Counterpart of the segmentation part of
-``dinomc_tpu/objectives/segmentation.py`` (reference ``utils/loss.py``):
-pixel cross-entropy with ``ignore_index`` and the ``DiceCrossEntropyLoss``
-of the seg fine-tune (``utils/loss.py:175-199``). Logits are (B, H, W, C),
-targets (B, H, W) integers, as in the JAX package. The OSCD and soft-IoU
-losses are not ported yet (ROADMAP.md queue 1 #16).
+Counterpart of ``dinomc_tpu/objectives/segmentation.py`` (reference
+``utils/loss.py``): pixel cross-entropy with ``ignore_index`` and the
+``DiceCrossEntropyLoss`` of the seg fine-tune (``utils/loss.py:175-199``),
+logits (B, H, W, C) and targets (B, H, W) integers as in the JAX package;
+and the classification step's ``multilabel_soft_margin_loss``. The OSCD and
+soft-IoU losses are not ported yet (ROADMAP.md queue 1 #16).
 """
 
 from __future__ import annotations
@@ -55,3 +55,12 @@ def dice_ce_loss(
     if ignore_index is not None:
         one_hot = one_hot * (target != ignore_index)[..., None]
     return ce + soft_dice_loss_per_class(probs, one_hot)
+
+
+def multilabel_soft_margin_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``torch.nn.MultiLabelSoftMarginLoss`` (``main_bigearthnet.py``): the
+    batch mean of the class mean of -[y log s(x) + (1 - y) log s(-x)],
+    logits (B, C), targets (B, C) in {0, 1}, in f32."""
+    logits, target = logits.float(), target.float()
+    per_class = -(target * F.logsigmoid(logits) + (1.0 - target) * F.logsigmoid(-logits))
+    return per_class.mean(dim=1).mean()

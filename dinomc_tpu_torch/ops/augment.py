@@ -13,8 +13,12 @@ are NHWC at the public functions, as in the JAX package.
 
 The unfused ``color_jitter`` and ``normalize`` serve the segmentation
 transform (``data/seg_datasets.augment_batch``), with their draws apart
-(``draw_color_jitter``). ``multicrop_augment_tp`` (DINO-TP) is not ported
-yet (ROADMAP.md, queue 1 #10).
+(``draw_color_jitter``). The EuroSAT train transform is
+``eurosat_train_view`` on ``draw_eurosat_view``'s boxes and flips:
+``resized_crop`` (scale (0.08, 1.0)), ``random_hflip`` and ``normalize``;
+it runs no photometric kernel, as in the JAX package. ``resize`` is
+``jax.image.resize`` (antialiased). ``multicrop_augment_tp`` (DINO-TP) is
+not ported yet (ROADMAP.md, queue 1 #10).
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ from dinomc_tpu_torch.ops.hopper.augment import (
 __all__ = [
     "IMAGENET_MEAN", "IMAGENET_STD", "MultiCropConfig", "CropDraw",
     "draw_crop_boxes", "draw_multicrop", "resize_weights",
-    "random_resized_crop", "multicrop_augment", "JitterDraw",
+    "random_resized_crop", "resized_crop", "resize", "draw_hflip", "random_hflip",
+    "EUROSAT_SCALE", "draw_eurosat_view", "eurosat_train_view",
+    "multicrop_augment", "JitterDraw",
     "draw_color_jitter", "color_jitter", "normalize",
 ]
 
@@ -172,6 +178,65 @@ def random_resized_crop(
     ww = resize_weights(W, out_size, scale_x, -x0 * scale_x, method)  # (B, S, W)
     out = wh[:, None] @ images @ ww.transpose(1, 2)[:, None]
     return out.clamp(0.0, 1.0)
+
+
+def resized_crop(
+    images: torch.Tensor, boxes: torch.Tensor, out_size: int, method: str = "bicubic",
+) -> torch.Tensor:
+    """``random_resized_crop`` on NHWC images: (B, H, W, C) -> (B, out, out,
+    C), the JAX package's ``random_resized_crop`` for the same boxes."""
+    planar = images.permute(0, 3, 1, 2)
+    return random_resized_crop(planar, boxes, out_size, method).permute(0, 2, 3, 1)
+
+
+def resize(images: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
+    """``jax.image.resize`` of NHWC f32 images to ``size`` = (h, w): scale
+    out/in and no translation, antialiased when downsampling, not clipped."""
+    B, H, W, _ = images.shape
+    h, w = size
+    zero = torch.zeros(B, device=images.device)
+
+    def weights(n_in, n_out):
+        return resize_weights(n_in, n_out, torch.full((B,), n_out / n_in, device=images.device),
+                              zero, method)
+
+    planar = images.float().permute(0, 3, 1, 2)
+    out = weights(H, h)[:, None] @ planar @ weights(W, w).transpose(1, 2)[:, None]
+    return out.permute(0, 2, 3, 1)
+
+
+def draw_hflip(gen: torch.Generator, B: int, p: float = 0.5, device=None) -> torch.Tensor:
+    """(B,) bool: flip sample b when U(0, 1) < p (``jax.random.bernoulli``)."""
+    dev = device if device is not None else gen.device
+    return torch.rand(B, generator=gen, device=dev) < p
+
+
+def random_hflip(images: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
+    """Mirror the NHWC images whose ``flips`` entry is set."""
+    return torch.where(flips.view(-1, 1, 1, 1), images.flip(2), images)
+
+
+# RandomResizedCrop's area range in the EuroSAT train transform
+# (torchvision's default, ``main_eurosat.py:57-63``)
+EUROSAT_SCALE = (0.08, 1.0)
+
+
+def draw_eurosat_view(
+    gen: torch.Generator, B: int, H: int, W: int, device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The EuroSAT train transform's draws, crop boxes then flips:
+    ((B, 4) boxes, (B,) bool flips)."""
+    return (draw_crop_boxes(gen, B, H, W, EUROSAT_SCALE, device=device),
+            draw_hflip(gen, B, device=device))
+
+
+def eurosat_train_view(
+    images: torch.Tensor, draws: Tuple[torch.Tensor, torch.Tensor], size: int,
+) -> torch.Tensor:
+    """RandomResizedCrop(size) + flip + normalize of NHWC f32 images in
+    [0, 1] on ``draw_eurosat_view``'s draws: (B, size, size, 3)."""
+    boxes, flips = draws
+    return normalize(random_hflip(resized_crop(images, boxes, size), flips))
 
 
 def _crop(images, draw: CropDraw, size: int, method: str) -> torch.Tensor:

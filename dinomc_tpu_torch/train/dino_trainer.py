@@ -5,12 +5,12 @@ reference ``train_one_epoch`` (``main_dino_mc.py:356-416``). One step:
 teacher forward over the global crops (no grad), student forward over every
 crop with local size-buckets packed two to a sequence, the weight-normed
 head and the centred DINO loss, the backward pass, per-tensor clipping, the
-last-layer freeze, AdamW, the teacher EMA (which reads the *new* student)
-and the centre update.
+last-layer freeze, the optimizer (AdamW or SGD), the teacher EMA (which
+reads the *new* student) and the centre update.
 
 Where the JAX step returns a new state, this one updates ``DinoTrainState``
-in place under ``torch.no_grad()``: the student parameters, the AdamW
-moments and counts, the teacher (EMA), the centre and the step counter.
+in place under ``torch.no_grad()``: the student parameters, the optimizer
+state, the teacher (EMA), the centre and the step counter.
 Matmuls run in ``compute_dtype`` with explicit casts; LayerNorm statistics,
 the head's normalization, the logits, the loss and the centre stay f32, and
 TF32 is switched off for f32 matmuls and convolutions
@@ -126,10 +126,7 @@ def init_dino_train_state(cfg: DinoConfig, seed: int = 0, device="cpu") -> DinoT
     """Student initialized on the CPU from ``seed`` (so every device starts
     from the same weights), moved to ``device``; the teacher is a copy
     (reference ``main_dino_mc.py:262-265``)."""
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP.md queue 1 #13)"
-        )
+    opt_init, _ = optim.OPTIMIZERS[cfg.optimizer]  # 'lars' raises: ROADMAP.md queue 1 #13
     set_matmul_precision()
     gen = torch.Generator().manual_seed(seed)
     student = nn.ModuleDict({
@@ -141,7 +138,7 @@ def init_dino_train_state(cfg: DinoConfig, seed: int = 0, device="cpu") -> DinoT
         step=0,
         student=student,
         teacher=teacher,
-        opt_state=optim.adamw_init(dict(student.named_parameters())),
+        opt_state=opt_init(dict(student.named_parameters())),
         center=torch.zeros(cfg.out_dim, dtype=torch.float32, device=device),
         generator=torch.Generator(device=device).manual_seed(seed + 1),
     )
@@ -292,7 +289,8 @@ def dino_train_step(
 
 @torch.no_grad()
 def _finish_step(state, grads, loss, new_center, lr, wd, ema_m, epoch, cfg: DinoConfig):
-    """Clip -> masked AdamW -> EMA teacher -> centre and step, in place."""
+    """Clip -> masked optimizer update -> EMA teacher -> centre and step,
+    in place."""
     if cfg.clip_grad > 0:
         optim.clip_gradients_per_tensor(grads, cfg.clip_grad)
     params = dict(state.student.named_parameters())
@@ -304,7 +302,8 @@ def _finish_step(state, grads, loss, new_center, lr, wd, ema_m, epoch, cfg: Dino
         n: max(frozen_m[n] if frozen_m else 0.0, last_layer_m[n] * frozen_now)
         for n in params
     }
-    optim.adamw_update(grads, state.opt_state, params, lr, wd, wd_m, frozen_mask=frozen)
+    _, opt_update = optim.OPTIMIZERS[cfg.optimizer]
+    opt_update(grads, state.opt_state, params, lr, wd, wd_m, frozen_mask=frozen)
 
     # EMA teacher from the updated student (main_dino_mc.py:403-406)
     for t, s in zip(state.teacher.parameters(), state.student.parameters()):

@@ -1,6 +1,6 @@
-"""AdamW and gradient transforms for the DINO-MC trainer.
+"""AdamW, SGD and gradient transforms for the trainers.
 
-Counterpart of ``dinomc_tpu/train/optim.py`` (AdamW part). Parameters,
+Counterpart of ``dinomc_tpu/train/optim.py`` (AdamW and SGD). Parameters,
 gradients, masks and moments are dictionaries keyed by the student's
 parameter names (``backbone.blocks.0.attn.qkv.weight``, ...). Semantics are
 the JAX package's:
@@ -20,9 +20,10 @@ blocks' copies of a tensor, and a block's LayerNorm scale, one row of a
 (depth, D) leaf, is decayed. The port keeps one tensor per block, as the
 reference's state dict does, and applies the rules to the stacked groups.
 
-Unlike the functional JAX version, ``clip_gradients_per_tensor`` and
-``adamw_update`` update their tensors in place under ``torch.no_grad()``.
-SGD and LARS are not ported yet (ROADMAP.md queue 1 #13).
+Unlike the functional JAX version, ``clip_gradients_per_tensor``,
+``adamw_update`` and ``sgd_update`` update their tensors in place under
+``torch.no_grad()``. ``OPTIMIZERS`` maps a name to (init, update), as in
+JAX; LARS is not ported yet (ROADMAP.md queue 1 #13).
 """
 
 from __future__ import annotations
@@ -124,3 +125,45 @@ def adamw_update(
         if wd_mask_tree[name] and weight_decay:
             upd.add_(p.float(), alpha=weight_decay)
         p.sub_((upd * lr).to(p.dtype))
+
+
+def sgd_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Zero f32 momentum buffers per parameter."""
+    return {"mu": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
+
+
+@torch.no_grad()
+def sgd_update(
+    grads: Tensors,
+    state: Dict[str, Dict],
+    params: Mapping[str, torch.Tensor],
+    lr: float,
+    weight_decay: float,
+    wd_mask_tree: Mapping[str, float],
+    momentum: float = 0.9,
+    frozen_mask: Optional[Mapping[str, float]] = None,
+) -> None:
+    """Torch SGD with momentum (no dampening, no Nesterov):
+    m = momentum * m + g + wd * mask * p, then p -= lr * m, in place. A
+    frozen parameter (``frozen_mask`` 1.0) keeps its value and its buffer,
+    as torch skips a parameter whose grad is None."""
+    for name, p in params.items():
+        if frozen_mask is not None and frozen_mask[name] > 0.5:
+            continue
+        g = grads[name].float()
+        if wd_mask_tree[name] and weight_decay:
+            g = g + weight_decay * p.float()
+        m = state["mu"][name]
+        m.mul_(momentum).add_(g)
+        p.sub_((m * lr).to(p.dtype))
+
+
+def _lars_not_ported(*_args, **_kwargs):
+    raise NotImplementedError("optimizer 'lars' is not ported yet (ROADMAP.md queue 1 #13)")
+
+
+OPTIMIZERS = {
+    "adamw": (adamw_init, adamw_update),
+    "sgd": (sgd_init, sgd_update),
+    "lars": (_lars_not_ported, _lars_not_ported),
+}

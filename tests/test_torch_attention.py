@@ -178,6 +178,10 @@ FWD_SHAPES = [
     pytest.param(8, 101, 6, 64, 0, id="single-84px"),
     pytest.param(2, 70, 2, 32, 33, id="ragged-d32"),
     pytest.param(3, 50, 4, 16, 0, id="ragged-d16"),
+    pytest.param(32, 785, 6, 64, 0, id="eurosat-finetune"),
+    pytest.param(64, 785, 6, 64, 0, id="eurosat-feature-batch"),
+    pytest.param(8, 785, 6, 64, 0, id="eurosat-val-remainder"),
+    pytest.param(32, 65, 6, 64, 0, id="eurosat-cli-64px"),
 ]
 
 
@@ -206,3 +210,47 @@ def test_forward_kernel_at_every_main_path_shape(cuda_device, B, N, h, d, bounda
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert (o.float() - ref.float()).abs().max().item() <= 1e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+# --- K1 and K2 on the EuroSAT paths -----------------------------------------
+
+@pytest.mark.cuda
+def test_feature_extraction_launches_k1_alone(cuda_device):
+    """Frozen features (``eval/knn.extract_features``, autograd off) run K1
+    forward only: 12 launches a batch of ViT-Ti/16, no K2."""
+    from dinomc_tpu_torch.eval.knn import extract_features
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train import cls_trainer as tcls
+
+    cfg = tcls.ClsConfig(arch="vit_tiny", patch_size=16)
+    model = tcls.init_cls_train_state(cfg, device=cuda_device).model
+    enc = cfg.encoder()
+    batches = [(torch.rand(8, 64, 64, 3, device=cuda_device), torch.arange(8)) for _ in range(3)]
+    _build.LAUNCHES.clear()
+    f, y = extract_features(lambda x: enc.apply(model["backbone"], x), batches)
+    assert f.shape == (24, 192) and y.device.type == "cuda"
+    assert dict(_build.LAUNCHES) == {"attention_fwd": 36}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("freeze", [False, True])
+def test_finetune_launch_counts(cuda_device, freeze):
+    """``cls_train_step``: per step 12 K1 and, unless the backbone is frozen,
+    12 K2 (remat ``attn`` keeps K1's output); a frozen backbone stays
+    bit-identical."""
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train import cls_trainer as tcls
+
+    cfg = tcls.ClsConfig(arch="vit_tiny", patch_size=16, freeze_backbone=freeze)
+    state = tcls.init_cls_train_state(cfg, device=cuda_device)
+    bb0 = [p.clone() for p in state.model["backbone"].parameters()]
+    x = torch.randn(8, 64, 64, 3, device=cuda_device)
+    y = torch.arange(8, device=cuda_device) % 10
+    _build.LAUNCHES.clear()
+    for _ in range(2):
+        m = tcls.cls_train_step(state, x, y, 0.01, 0.0, cfg)
+    assert np.isfinite(float(m["loss"]))
+    assert dict(_build.LAUNCHES) == ({"attention_fwd": 24} if freeze else
+                                     {"attention_fwd": 24, "attention_bwd": 24})
+    same = all(torch.equal(a, b) for a, b in zip(state.model["backbone"].parameters(), bb0))
+    assert same == freeze

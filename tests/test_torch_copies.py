@@ -4,10 +4,11 @@ the JAX package, and the rule that the port imports nothing of it.
 The port keeps numpy/PyTorch copies of what it took from jax-free modules
 of ``dinomc_tpu``: the state-dict exporters (``ckpt/state_dicts.py``), the
 reference-checkpoint import (``ckpt/torch_import.py``), the CSV and W&B
-loggers, and the pretraining host readers (``data/{seco,packed,
-native_loader}.py``). The same inputs go through both; the outputs must be
-equal: state dicts key for key and value for value, the same images decoded,
-the same CSV written.
+loggers, the pretraining host readers (``data/{seco,packed,
+native_loader}.py``), the synthetic texture worlds (``utils/synthetic.py``)
+and the numpy half of ``eval/retrieval.py``. The same inputs go through
+both; the outputs must be equal: state dicts key for key and value for
+value, the same images decoded, the same CSV written, the same arrays drawn.
 """
 
 import ast
@@ -23,17 +24,21 @@ from dinomc_tpu.ckpt import torch_export, torch_import as jimport
 from dinomc_tpu.data import native_loader as jnative
 from dinomc_tpu.data import packed as jpacked
 from dinomc_tpu.data import seco as jseco
+from dinomc_tpu.eval import retrieval as jret
 from dinomc_tpu.models import dino_head as jhead
 from dinomc_tpu.models import upernet as jup
 from dinomc_tpu.models import vit as jvit
 from dinomc_tpu.utils import logging as jlog
+from dinomc_tpu.utils import synthetic as jsyn
 from dinomc_tpu_torch.ckpt import state_dicts
 from dinomc_tpu_torch.ckpt import torch_import as timport
 from dinomc_tpu_torch.data import native_loader as tnative
 from dinomc_tpu_torch.data import packed as tpacked
 from dinomc_tpu_torch.data import seco as tseco
+from dinomc_tpu_torch.eval import retrieval as tret
 from dinomc_tpu_torch.models import vit as tvit
 from dinomc_tpu_torch.utils import logging as tlog
+from dinomc_tpu_torch.utils import synthetic as tsyn
 from _torch_port import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
@@ -159,6 +164,40 @@ def test_host_readers_decode_what_the_originals_decode(seco_tree, tmp_path):
                                   jpacked.PackedReader(str(out)).batch([0, 5, 3]))
 
 
+@pytest.mark.parametrize("family", ["v1", "v2", "v2m"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_texture_worlds_are_the_originals(family, seed):
+    """Every family, at the learning check's 128 px and an odd size."""
+    for size, n_per_class in ((128, 2), (37, 3)):
+        ours = tsyn.make_texture_dataset(n_per_class, size, seed=seed, family=family)
+        ref = jsyn.make_texture_dataset(n_per_class, size, seed=seed, family=family)
+        for a, b in zip(ours, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert tsyn.NUM_CLASSES == jsyn.NUM_CLASSES and set(tsyn.TEXTURES) == set(jsyn.TEXTURES)
+
+
+@pytest.mark.parametrize("whit", [None, 0.5])
+def test_pca_is_the_original(whit):
+    x = np.random.default_rng(10).standard_normal((40, 12)) @ np.diag(np.arange(1, 13))
+    ours, ref = tret.PCA(dim=5, whit=whit).fit(x), jret.PCA(dim=5, whit=whit).fit(x)
+    np.testing.assert_array_equal(ours.apply(x[:7]), ref.apply(x[:7]))
+
+
+def test_retrieval_map_is_the_original():
+    """Revisited-Oxford mAP with junk entries, an empty query and kappas."""
+    rng = np.random.default_rng(11)
+    ranks = np.stack([rng.permutation(30) for _ in range(4)], axis=1)  # (n_db, n_queries)
+    gnd = [{"ok": [1, 5, 9], "junk": [2]}, {"ok": [0], "junk": []}, {"ok": []},
+           {"ok": list(range(10, 20)), "junk": [3, 4]}]
+    ours = tret.compute_map(ranks, gnd, kappas=(1, 5, 10))
+    ref = jret.compute_map(ranks, gnd, kappas=(1, 5, 10))
+    assert ours[0] == ref[0]
+    for a, b in zip(ours[1:], ref[1:]):
+        np.testing.assert_array_equal(a, b)
+    assert tret.compute_ap(np.array([0, 3, 7]), 4) == jret.compute_ap(np.array([0, 3, 7]), 4)
+
+
 def _imports_of_the_jax_package(path: Path):
     """(line, module) of every ``import dinomc_tpu...`` / ``from dinomc_tpu...``
     in a file, at any depth (inside functions too); the port itself excepted."""
@@ -175,8 +214,10 @@ def _imports_of_the_jax_package(path: Path):
 
 
 def test_port_never_imports_the_jax_package():
-    """An AST scan of every .py of the port and chip_smoke.py."""
-    files = sorted((REPO / "dinomc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """An AST scan of every .py of the port, chip_smoke.py and the port's
+    learning check."""
+    files = sorted((REPO / "dinomc_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "validate_learning_torch.py"]
     assert len(files) > 30
     found = {str(f.relative_to(REPO)): hits for f in files if (hits := _imports_of_the_jax_package(f))}
     assert not found, found

@@ -324,6 +324,31 @@ def test_six_steps_match_jax_from_its_init():
     assert moved > 1e-3
 
 
+def test_three_sgd_steps_match_jax():
+    """``optimizer='sgd'`` (momentum 0.9): 3 steps of both packages'
+    ``dino_train_step`` from the JAX package's init, over the last-layer
+    freeze of epoch 0 and its end, at the bounds above."""
+    jcfg, tcfg = _configs(optimizer="sgd", clip_grad=3.0, freeze_last_layer=1)
+    jstate, tstate = _states(jcfg, tcfg)
+    assert set(tstate.opt_state) == {"mu"}
+    lr, wd, mom, ttemp = _schedules(lr_base=1e-2)
+    jsch = jtr.DinoSchedules(lr=jnp.asarray(lr), wd=jnp.asarray(wd),
+                             teacher_momentum=jnp.asarray(mom), teacher_temp=jnp.asarray(ttemp))
+    tsch = ttr.DinoSchedules(lr=lr, wd=wd, teacher_momentum=mom, teacher_temp=ttemp)
+    rng = np.random.default_rng(11)
+    for it in range(3):
+        crops = _crops(rng)
+        jstate, jm = jtr.dino_train_step(
+            jstate, jnp.asarray(np.stack(crops[:2])), tuple(map(jnp.asarray, crops[2:])), jsch, jcfg)
+        tm = ttr.dino_train_step(tstate, t(np.stack(crops[:2])), tuple(map(t, crops[2:])), tsch, tcfg)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), atol=1e-5, rtol=0,
+                                   err_msg=f"loss at step {it}")
+    assert_state_dicts_close(tstate.student.state_dict(), _sd(jstate.student), 5e-4, "student ")
+    assert_state_dicts_close(tstate.teacher.state_dict(), _sd(jstate.teacher), 5e-4, "teacher ")
+    assert torch.equal(tstate.student["head"].last_layer.weight_g, torch.ones(64, 1))
+    assert float(tstate.opt_state["mu"]["head.last_layer.weight_v"].abs().max()) > 0
+
+
 def test_clip_and_decay_groups_are_the_references():
     """The port's weight-decay groups and clip are the JAX package's, which
     apply both rules to its stacked (depth, ...) block leaves: all blocks'

@@ -154,12 +154,15 @@ def test_stacked_chunks_are_instantiated(direction, heads):
 
 
 # (what, nB, heads, mask kind); the first four are the stage shapes of the
-# main path at 224 px and 16 images, shift masks on the odd blocks
+# main path at 224 px and 16 images, shift masks on the odd blocks; the last
+# four those of the EuroSAT fine-tune at 224 px and 32 images
 CARD_SHAPES = [
     ("stage 1", 1024, 3, ("shift", 56)), ("stage 2", 256, 6, ("shift", 28)),
     ("stage 3", 64, 12, ("shift", 14)), ("stage 4", 16, 24, None),
     ("184 px stage 1", 8 * 49, 3, ("shift+pad", 46)), ("84 px stage 4", 8, 24, ("pad", 3)),
     ("ragged", 8, 2, ("shift+pad", 10)),
+    ("B=32 stage 1", 2048, 3, ("shift", 56)), ("B=32 stage 2", 512, 6, ("shift", 28)),
+    ("B=32 stage 3", 128, 12, ("shift", 14)), ("B=32 stage 4", 32, 24, None),
 ]
 
 
