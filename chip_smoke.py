@@ -77,7 +77,18 @@ script exits non-zero:
    ``--evaluate_probe`` and ``--evaluate`` of the best checkpoint the first
    wrote; and once on an ImageFolder tree of 256 px PNGs written from a seed
    (decode, bicubic resize to 256, train crops and val centre crops at
-   224 px, a val remainder batch).
+   224 px, a val remainder batch);
+13. the convnets: ``train_dino`` for 5 ResNet-50 steps and 2 WRN-50-2 steps
+   with LARS and BatchNorm in the head (out_dim 65536, batch 8, the DINO
+   convnet recipe's lr 0.3 and weight decay 1e-6, synthetic images, weights
+   from a seed): finite losses, the student's convolutions moved, the
+   teacher followed by EMA, both BatchNorm states moved
+   (``num_batches_tracked`` once a crop-size bucket a step in the student,
+   once a step in the teacher), K3 8 launches a step and no other kernel;
+   then ``cli.eurosat --arch resnet50`` in its four modes on
+   ``--data_path synthetic``, then 3 ResNet-50 ``cls_train_step``s at 224 px,
+   B = 32, and 3 with the backbone frozen (its parameters bit-identical, its
+   running statistics moved), launching no kernel of the table.
 
 Then one JSON line with each kernel's launches, error, times, bound and
 library time, and as the last line ``{"ok": true, "device": {...}}``. With
@@ -217,6 +228,18 @@ SWIN_TRAIN_ARGS = [
     "--data_path", "synthetic", "--max_steps", "5", "--device", "cuda",
     "--print_freq", "1", "--num_workers", "4",
 ]
+# phase 13: the DINO convnet recipe (LARS, BN in the head, base lr 0.3
+# linearly scaled, weight decay 1e-6) from the first step: no warm-up, so a
+# 5-step run moves LARS's trust-ratio-sized updates above f32 resolution
+RESNET_TRAIN_ARGS = [
+    "--arch", "resnet50", "--optimizer", "lars", "--use_bn_in_head", "true",
+    "--out_dim", "65536", "--batch_size_per_gpu", "8", "--lr", "0.3",
+    "--warmup_epochs", "0", "--weight_decay", "1e-6", "--weight_decay_end", "1e-6",
+    "--data_path", "synthetic", "--max_steps", "5", "--device", "cuda",
+    "--print_freq", "1", "--num_workers", "4",
+]
+WRN_STEPS = 2
+RESNET_CLS_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -465,10 +488,11 @@ def phase_photometric(torch):
     return worst, timing
 
 
-def _train_run(torch, smi, train_args, tag):
-    """One 5-step ``train_dino`` run: checks the losses, that the student
-    trained and the teacher followed by EMA, and prints the step times.
-    Returns (launches over the run, args, config)."""
+def _train_run(torch, smi, train_args, tag, steps=5):
+    """One ``train_dino`` run of ``steps`` steps: checks the losses, that the
+    student trained and the teacher followed by EMA, and prints the step
+    times. Returns (launches over the run, crop config, config, final
+    state, initial state)."""
     from dinomc_tpu_torch.cli.train_dino import build_config, get_args_parser, train_dino
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
@@ -483,8 +507,8 @@ def _train_run(torch, smi, train_args, tag):
         launches = dict(_build.LAUNCHES)
     print(f"[{tag}] losses {summary.losses}")
     print(f"[{tag}] launches over the run: {launches}")
-    if len(summary.losses) != 5 or not all(math.isfinite(x) for x in summary.losses):
-        raise AssertionError(f"expected 5 finite losses, got {summary.losses}")
+    if len(summary.losses) != steps or not all(math.isfinite(x) for x in summary.losses):
+        raise AssertionError(f"expected {steps} finite losses, got {summary.losses}")
 
     mc_cfg, cfg = build_config(args, 1)
     init = init_dino_train_state(cfg, args.seed, "cuda")
@@ -505,11 +529,11 @@ def _train_run(torch, smi, train_args, tag):
     print(f"[{tag}] median step {med:.3f} ms, {8 / (med / 1e3):.3f} images/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"wall {wall:.1f} s  [{smi}]")
-    return launches, mc_cfg, cfg
+    return launches, mc_cfg, cfg, st, init
 
 
 def phase_train(torch, smi):
-    launches, _, _ = _train_run(torch, smi, TRAIN_ARGS, "train")
+    launches = _train_run(torch, smi, TRAIN_ARGS, "train")[0]
     for name in ("attention_fwd", "attention_bwd", "photometric"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -734,7 +758,7 @@ def phase_swin_train(torch, smi):
     configuration implies (one backbone call per crop size, teacher over the
     globals, student over every crop; Swin does not pack crops), and no
     attention kernel of the ViT."""
-    launches, mc_cfg, cfg = _train_run(torch, smi, SWIN_TRAIN_ARGS, "swin train")
+    launches, mc_cfg, cfg, _, _ = _train_run(torch, smi, SWIN_TRAIN_ARGS, "swin train")
     steps = 5
     blocks = cfg.encoder(True).swin_config().num_blocks
     buckets = len(set(mc_cfg.local_sizes))
@@ -1225,6 +1249,84 @@ def phase_cls(torch, smi):
     return total
 
 
+def _convnet_train(torch, smi, arch, steps):
+    """``steps`` DINO steps of ``arch`` through ``train_dino`` with LARS and
+    BN in the head; checks K3's launches, the convolutions, and both
+    BatchNorm states. Returns the launches over the run."""
+    args = RESNET_TRAIN_ARGS + ["--arch", arch, "--max_steps", str(steps)]
+    launches, mc_cfg, cfg, st, init = _train_run(torch, smi, args, f"{arch} train", steps)
+    _check_launches(f"{arch} train", launches, {"photometric": steps * (2 + len(mc_cfg.local_sizes))})
+    convs = max((st.student.state_dict()[k] - v).abs().max().item()
+                for k, v in init.student.state_dict().items() if ".conv" in k)
+    print(f"[{arch} train] student convolutions max|change| {convs:.3e}")
+    if not convs > 0:
+        raise AssertionError("the student's convolutions did not move")
+    buckets = 1 + len(set(mc_cfg.local_sizes))
+    for which, calls in (("student", steps * buckets), ("teacher", steps)):
+        now, before = getattr(st, which).state_dict(), getattr(init, which).state_dict()
+        moved = min(max((now[k] - before[k]).abs().max().item() for k in now if k.endswith(s))
+                    for s in ("running_mean", "running_var"))
+        tracked = {int(v) for k, v in now.items() if k.endswith("num_batches_tracked")}
+        print(f"[{arch} train] {which} running statistics max|change| {moved:.3e}, "
+              f"num_batches_tracked {sorted(tracked)} (implied {calls})")
+        if not moved > 0 or tracked != {calls}:
+            raise AssertionError(f"{which} BatchNorm state: moved {moved}, tracked {tracked}, "
+                                 f"the configuration implies {calls}")
+    return launches
+
+
+def phase_convnets(torch, smi):
+    """The ResNets: DINO-MC pretraining, the EuroSAT CLI and fine-tune steps.
+    Returns the launches of the phase's main paths, summed by kernel."""
+    import dataclasses
+    import statistics
+
+    from dinomc_tpu_torch.cli import eurosat
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.cls_trainer import ClsConfig, init_cls_train_state
+
+    total = dict(_convnet_train(torch, smi, "resnet50", 5))
+    for name, c in _convnet_train(torch, smi, "wide_resnet50_2", WRN_STEPS).items():
+        total[name] = total.get(name, 0) + c
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        results = {}
+        _build.LAUNCHES.clear()
+        for mode in ("train", "evaluate_knn", "evaluate_probe", "evaluate"):
+            extra = [] if mode == "train" else [f"--{mode}", "true"]
+            args = eurosat.get_args_parser().parse_args(
+                CLS_CLI_ARGS + ["--arch", "resnet50", "--output_dir", out_dir] + extra)
+            results[mode] = eurosat.run(args)
+        launches = dict(_build.LAUNCHES)
+    print(f"[eurosat cli resnet50] {results}")
+    _check_launches("eurosat cli resnet50", launches, {})
+    if not all(0.0 <= v <= 100.0 for v in results.values()):
+        raise AssertionError(f"eurosat CLI results outside [0, 100]: {results}")
+    if results["evaluate"] != results["train"]:
+        raise AssertionError("--evaluate of the best checkpoint disagrees with the run that wrote it")
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfg = ClsConfig(arch="resnet50", num_classes=CLS_CLASSES)
+    state = init_cls_train_state(cfg, seed=0, device="cuda")
+    for frozen in (False, True):
+        step_cfg = dataclasses.replace(cfg, freeze_backbone=frozen)
+        tag = "cls resnet50" + (" frozen" if frozen else "")
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        _check_launches(tag, _cls_steps(torch, state, step_cfg, RESNET_CLS_STEPS, gen, tag, smi),
+                        {})
+        now = state.model.state_dict()
+        params = [k for k, _ in state.model.named_parameters() if k.startswith("backbone.")]
+        same = all(torch.equal(now[k], before[k]) for k in params)
+        stats = statistics.median(
+            (now[k] - before[k]).abs().max().item() for k in now if k.endswith("running_var"))
+        print(f"[{tag}] backbone parameters bit-identical: {same}; running variances "
+              f"median max|change| {stats:.3e}")
+        if same != frozen or not stats > 0:
+            raise AssertionError(f"{tag}: parameters bit-identical {same}, running stats {stats}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1243,6 +1345,7 @@ def main() -> int:
     wins_err, wins_t, wins_launches = phase_window_attention_stacked(torch, win_t)
     mlp_launches = phase_fused_mlp_train(torch, smi)
     cls_launches = phase_cls(torch, smi)
+    convnet_launches = phase_convnets(torch, smi)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -1265,7 +1368,7 @@ def main() -> int:
               with_cls(launches, "attention_bwd"), grad_err, attn_t["bwd_ms"],
               attn_t["bwd_plain_ms"], attn_t["bwd_bound"], attn_t["bwd_library_ms"]),
         entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
-              launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
+              launches.get("photometric", 0) + convnet_launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
               photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),

@@ -5,9 +5,12 @@ of the JAX package's exporters), which emit the reference's
 timm/DINO/torchvision/mmseg state-dict layout; the port's modules use the
 same names, so each load is ``load_state_dict(strict=True)``. Inputs are
 numpy trees (or anything ``np.asarray`` reads, such as host copies of JAX
-arrays). A UPerNet takes a ``(params, bn_state)`` pair. A ViT loads the
-same tree whatever its ``mlp_impl``: the dense and the fused MLP read the
-same ``fc1``/``fc2`` tensors.
+arrays). A UPerNet or a ResNet takes a ``(params, bn_state)`` pair, its
+running statistics included. A ViT loads the same tree whatever its
+``mlp_impl``: the dense and the fused MLP read the same ``fc1``/``fc2``
+tensors. A DINO head with BatchNorm has no exporter in the JAX package
+(``torch_export.py:85-89`` refuses it), so it is mapped here, to the
+reference's shifted Sequential indices.
 """
 
 from __future__ import annotations
@@ -20,11 +23,13 @@ import torch.nn as nn
 
 from dinomc_tpu_torch.ckpt.state_dicts import (
     dino_head_state_dict,
+    resnet_state_dict,
     swin_state_dict,
     upernet_state_dict,
     vit_state_dict,
 )
 from dinomc_tpu_torch.models.dino_head import DINOHead
+from dinomc_tpu_torch.models.resnet import ResNet
 from dinomc_tpu_torch.models.swin import SwinTransformer
 from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
@@ -37,21 +42,47 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True)) for k, v in sd.items()}
 
 
+def head_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A DINO-head tree -> the reference ``DINOHead`` state dict. With
+    BatchNorm (``bn_scale``/``bn_bias`` in the hidden layers), dense layer j
+    sits at ``mlp.{3j}`` and its BatchNorm at ``mlp.{3j+1}`` (Linear, BN,
+    GELU); without, the exporter's ``mlp.{2j}``."""
+    n = sum(1 for k in params if k.startswith("mlp_"))
+    if not any("bn_scale" in params[f"mlp_{j}"] for j in range(n)):
+        return dino_head_state_dict(params, prefix)
+    sd: Dict[str, np.ndarray] = {}
+    for j in range(n):
+        layer = params[f"mlp_{j}"]
+        sd[f"{prefix}mlp.{3 * j}.weight"] = np.asarray(layer["kernel"], np.float32).T.copy()
+        sd[f"{prefix}mlp.{3 * j}.bias"] = np.asarray(layer["bias"], np.float32)
+        if "bn_scale" in layer:
+            sd[f"{prefix}mlp.{3 * j + 1}.weight"] = np.asarray(layer["bn_scale"], np.float32)
+            sd[f"{prefix}mlp.{3 * j + 1}.bias"] = np.asarray(layer["bn_bias"], np.float32)
+    last = {k: v for k, v in params.items() if not k.startswith("mlp_")}
+    sd.update(dino_head_state_dict(last, prefix))
+    return sd
+
+
+def _resnet(pair, prefix: str = "") -> Dict[str, np.ndarray]:
+    return resnet_state_dict(*pair, prefix)
+
+
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
-    a ViT or Swin tree, a DINO-head tree, a ``{'backbone', 'head'}`` tree
-    (ViT or Swin backbone), a classifier's ``{'backbone', 'fc'}`` tree, or a
-    UPerNet's ``(params, bn_state)``."""
-    backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict}
+    a ViT or Swin tree, a ResNet's or a UPerNet's ``(params, bn_state)``
+    pair, a DINO-head tree, a ``{'backbone', 'head'}`` tree, or a
+    classifier's ``{'backbone', 'fc'}`` tree (a ResNet backbone as a pair)."""
+    backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict,
+                 ResNet: _resnet}
     if isinstance(module, UPerNet):
         return _tensors(upernet_state_dict(*params))
     if type(module) in backbones:
         return _tensors(backbones[type(module)](params))
     if isinstance(module, DINOHead):
-        return _tensors(dino_head_state_dict(params))
+        return _tensors(head_state_dict(params))
     if isinstance(module, nn.ModuleDict) and set(module.keys()) == {"backbone", "head"}:
         sd = backbones[type(module["backbone"])](params["backbone"], "backbone.")
-        sd.update(dino_head_state_dict(params["head"], "head."))
+        sd.update(head_state_dict(params["head"], "head."))
         return _tensors(sd)
     if isinstance(module, nn.ModuleDict) and set(module.keys()) == {"backbone", "fc"}:
         sd = backbones[type(module["backbone"])](params["backbone"], "backbone.")
@@ -71,31 +102,46 @@ def _zero_opt_state(opt_state: dict) -> None:
                 entries[name].zero_()
 
 
+def _paired(model: nn.ModuleDict, params: Dict[str, Any], bn_state) -> Dict[str, Any]:
+    """``params`` with a ResNet backbone's tree paired with its BatchNorm
+    state, as ``state_dict_from_jax`` takes it."""
+    if isinstance(model["backbone"], ResNet):
+        return {**params, "backbone": (params["backbone"], bn_state)}
+    return params
+
+
 @torch.no_grad()
 def load_jax_params(module_or_state, jax_params) -> None:
     """Copy JAX parameters into a port module or train state, in place.
 
     For a ``DinoTrainState``, ``jax_params`` is a JAX ``DinoTrainState`` (or
-    any object with ``student``, ``teacher``, ``center`` and ``step``):
-    student, teacher, centre and step are copied and the optimizer state
-    starts from zero, as the JAX package's freshly initialized state
-    has them. For a ``SegTrainState``, ``jax_params`` is a JAX
-    ``SegTrainState``: parameters, BatchNorm statistics and step are copied,
-    the AdamW state starts from zero. For a ``ClsTrainState``, a JAX
-    ``ClsTrainState``: backbone, classifier and step are copied, the
-    optimizer state starts from zero."""
-    if isinstance(module_or_state, (SegTrainState, ClsTrainState)):
+    any object with ``student``, ``teacher``, ``center`` and ``step``, and
+    for a convnet ``student_state`` and ``teacher_state``): student,
+    teacher, their BatchNorm statistics, centre and step are copied and the
+    optimizer state starts from zero, as the JAX package's freshly
+    initialized state has them. For a ``SegTrainState``, ``jax_params`` is a
+    JAX ``SegTrainState``: parameters, BatchNorm statistics and step are
+    copied, the AdamW state starts from zero. For a ``ClsTrainState``, a JAX
+    ``ClsTrainState``: backbone (with its BatchNorm statistics), classifier
+    and step are copied, the optimizer state starts from zero."""
+    if isinstance(module_or_state, SegTrainState):
         st = module_or_state
-        is_seg = isinstance(st, SegTrainState)
-        load_jax_params(st.model, (jax_params.params, jax_params.bn_state) if is_seg
-                        else jax_params.params)
+        load_jax_params(st.model, (jax_params.params, jax_params.bn_state))
+        st.step = int(np.asarray(jax_params.step))
+        _zero_opt_state(st.opt_state)
+        return
+    if isinstance(module_or_state, ClsTrainState):
+        st = module_or_state
+        load_jax_params(st.model, _paired(st.model, jax_params.params, jax_params.bn_state))
         st.step = int(np.asarray(jax_params.step))
         _zero_opt_state(st.opt_state)
         return
     if isinstance(module_or_state, DinoTrainState):
         st = module_or_state
-        load_jax_params(st.student, jax_params.student)
-        load_jax_params(st.teacher, jax_params.teacher)
+        load_jax_params(st.student, _paired(st.student, jax_params.student,
+                                            getattr(jax_params, "student_state", {})))
+        load_jax_params(st.teacher, _paired(st.teacher, jax_params.teacher,
+                                            getattr(jax_params, "teacher_state", {})))
         st.center = torch.from_numpy(np.array(jax_params.center, np.float32)).to(st.center.device)
         st.step = int(np.asarray(jax_params.step))
         _zero_opt_state(st.opt_state)

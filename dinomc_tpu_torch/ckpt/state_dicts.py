@@ -2,7 +2,8 @@
 
 The port's own copies, numpy only, of the exporters in
 ``dinomc_tpu/ckpt/torch_export.py`` (``vit_state_dict``,
-``dino_head_state_dict``, ``swin_state_dict``, ``upernet_state_dict``): they
+``dino_head_state_dict``, ``swin_state_dict``, ``resnet_state_dict``,
+``upernet_state_dict``): they
 map a tree of the JAX package (numpy arrays, or anything ``np.asarray``
 reads) to timm/DINO, torchvision and mmseg names, which the port's modules
 carry. ``tests/test_torch_copies.py`` holds each to its original, key
@@ -114,6 +115,24 @@ def _conv_bn(sd: StateDict, p, s, conv_key: str, bn_key: str) -> None:
     sd[bn_key + ".running_mean"] = _np(s["bn"]["mean"])
     sd[bn_key + ".running_var"] = _np(s["bn"]["var"])
     sd[bn_key + ".num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def resnet_state_dict(params: Dict[str, Any], state: Dict[str, Any], prefix: str = "") -> StateDict:
+    """A ResNet-50 / WRN (params, BatchNorm state) pair -> torchvision names:
+    HWIO kernels become OIHW weights, the running statistics buffers."""
+    sd: StateDict = {}
+    _conv_bn(sd, params["stem"], state["stem"], prefix + "conv1", prefix + "bn1")
+    for stage in range(1, 5):
+        name = f"layer{stage}"
+        for b, (bp, bs) in enumerate(zip(params[name], state[name])):
+            pre = f"{prefix}{name}.{b}"
+            for i in (1, 2, 3):
+                _conv_bn(sd, bp[f"conv{i}"], bs[f"conv{i}"], f"{pre}.conv{i}", f"{pre}.bn{i}")
+            if "down" in bp:
+                _conv_bn(sd, bp["down"], bs["down"], f"{pre}.downsample.0", f"{pre}.downsample.1")
+    if "fc" in params:
+        _lin(sd, params["fc"], prefix + "fc")
+    return sd
 
 
 def upernet_state_dict(params: Dict[str, Any], state: Dict[str, Any]) -> StateDict:

@@ -7,12 +7,17 @@ prefixes; the JAX package's ``ckpt/torch_import.load_torch_state_dict`` does
 the same. The port's modules already carry the reference's names, so the
 result loads directly, with no JAX tree in between.
 
-A fine-tuned classifier (``main_eurosat.py:144-154``) is a full-model
-``state_dict`` with the classifier at ``head.weight`` / ``head.bias`` for
-ViT and Swin (``fc`` on torchvision convnets, ROADMAP.md queue 1 #13):
-``load_cls_checkpoint`` reads one into the port's ``{'backbone', 'fc'}``
-module, whose ``fc.kernel`` is ``head.weight`` transposed, and
-``save_cls_checkpoint`` writes one.
+A torchvision-layout ResNet ``.pth`` loads through ``load_backbone`` with
+its BatchNorm running statistics, the port's ResNet carrying torchvision's
+names. A fine-tuned classifier (``main_eurosat.py:144-154``) is a
+full-model ``state_dict`` with the classifier at ``head.weight`` /
+``head.bias`` for ViT and Swin and at ``fc.weight`` / ``fc.bias`` on the
+torchvision convnets: ``load_cls_checkpoint`` reads one into the port's
+``{'backbone', 'fc'}`` module, whose ``fc.kernel`` is that weight
+transposed, and ``save_cls_checkpoint`` writes one, BatchNorm buffers
+included. ``load_dino_head`` reads a reference ``DINOHead``, whose
+BatchNorm-in-head running statistics the port's head (as the JAX one) has
+no place for: they are dropped.
 """
 
 from __future__ import annotations
@@ -21,6 +26,10 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+
+from dinomc_tpu_torch.models.resnet import ResNet
+
+_BN_BUFFERS = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
 def load_torch_state_dict(path: str, checkpoint_key: Optional[str] = "teacher") -> Dict[str, torch.Tensor]:
@@ -49,15 +58,28 @@ def load_backbone(module: nn.Module, path: str, checkpoint_key: Optional[str] = 
     module.load_state_dict({n: sd[n].float() for n in names}, strict=True)
 
 
+@torch.no_grad()
+def load_dino_head(head: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Load a reference ``DINOHead`` state dict (``head.`` stripped) into the
+    port's head with ``strict=True``, after dropping the running statistics
+    of its BatchNorm-in-head layers, which the port's head does not keep."""
+    keep = {k: v.float() for k, v in sd.items()
+            if not (k.startswith("mlp.") and k.endswith(_BN_BUFFERS))}
+    head.load_state_dict(keep, strict=True)
+
+
+def _classifier_name(sd: Dict[str, torch.Tensor]) -> str:
+    """``fc`` on the torchvision convnets, ``head`` on ViT and Swin."""
+    return "fc" if "fc.weight" in sd and "head.weight" not in sd else "head"
+
+
 def cls_params_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A reference fine-tuned classifier's state dict (prefixes stripped)
     -> the port's ``{'backbone', 'fc'}`` state dict."""
-    if "fc.weight" in sd and "head.weight" not in sd:
-        raise NotImplementedError(
-            "convnet classifiers are not ported yet (ROADMAP.md queue 1 #13)")
-    out = {f"backbone.{k}": v for k, v in sd.items() if not k.startswith("head.")}
-    out["fc.kernel"] = sd["head.weight"].T.contiguous()
-    out["fc.bias"] = sd["head.bias"]
+    name = _classifier_name(sd)
+    out = {f"backbone.{k}": v for k, v in sd.items() if not k.startswith(name + ".")}
+    out["fc.kernel"] = sd[name + ".weight"].T.contiguous()
+    out["fc.bias"] = sd[name + ".bias"]
     return out
 
 
@@ -74,11 +96,13 @@ def save_cls_checkpoint(path: str, model: nn.Module, epoch: int = 0,
                         best_acc: Optional[float] = None) -> str:
     """Write ``model`` (``{'backbone', 'fc'}``) in the reference's
     classification layout: ``{'epoch', 'state_dict', 'best_acc'}``, the
-    classifier at ``head.weight`` (C, D) and ``head.bias``."""
+    classifier at ``head.weight`` (C, D) and ``head.bias``, or at ``fc.*``
+    for a ResNet, whose BatchNorm buffers are in the state dict."""
+    name = "fc" if isinstance(model["backbone"], ResNet) else "head"
     sd = {k[len("backbone."):]: v.detach().cpu()
           for k, v in model.state_dict().items() if k.startswith("backbone.")}
-    sd["head.weight"] = model.state_dict()["fc.kernel"].detach().cpu().T.contiguous()
-    sd["head.bias"] = model.state_dict()["fc.bias"].detach().cpu()
+    sd[name + ".weight"] = model.state_dict()["fc.kernel"].detach().cpu().T.contiguous()
+    sd[name + ".bias"] = model.state_dict()["fc.bias"].detach().cpu()
     save = {"epoch": int(epoch), "state_dict": sd}
     if best_acc is not None:
         save["best_acc"] = float(best_acc)

@@ -14,8 +14,10 @@ linear-probe protocols on the frozen backbone.
 The flags are the JAX CLI's plus ``--device``; ``--data_path synthetic``
 needs no dataset. One device: the JAX CLI's data parallelism over every
 chip (``make_mesh``) is not ported yet (ROADMAP.md queue 1 #17). The
-default ``--arch resnet50`` raises with its ROADMAP.md item (#13), as
-``train_dino`` does for the architectures not yet ported.
+default ``--arch resnet50`` and ``wide_resnet50_2`` run with their
+BatchNorm: batch statistics in the train step, running statistics in the
+evaluations and the k-NN and probe features. XCiT raises with its ROADMAP.md
+item (#15), as ``train_dino`` does.
 
 Run ``python -m dinomc_tpu_torch.cli.eurosat --help``.
 """

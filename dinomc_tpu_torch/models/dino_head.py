@@ -9,7 +9,12 @@ layout ``dino_head_state_dict`` writes. ``g`` is frozen by the optimizer's
 mask when ``norm_last_layer``. The MLP runs in the compute dtype; the
 normalization, the weight-norm and the logits stay f32.
 
-BN-in-head (``use_bn=True``) is not ported yet (ROADMAP.md queue 1 #4).
+With ``use_bn`` (the reference's convnet recipe) a BatchNorm follows each
+hidden linear layer, and the reference's Sequential indices shift: Linear
+at ``mlp.0``, ``mlp.3``, ``mlp.6``, BatchNorm at ``mlp.1``, ``mlp.4``. As in
+the JAX head, it always normalizes by the statistics of the rows of one
+head pass (the teacher's too), in f32 with the biased variance and eps
+1e-5, and keeps no running statistics.
 """
 
 from __future__ import annotations
@@ -45,13 +50,18 @@ class WeightNormLinear(nn.Module):
         self.weight_v = trunc_normal((d_out, d_in), gen)
 
 
+class BatchNorm(nn.Module):
+    """The head's BatchNorm: scale and bias only (batch statistics always)."""
+
+    def __init__(self, d: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(d))
+        self.bias = nn.Parameter(torch.zeros(d))
+
+
 class DINOHead(nn.Module):
     def __init__(self, cfg: DINOHeadConfig, gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.use_bn:
-            raise NotImplementedError(
-                "BN-in-head is not ported yet (ROADMAP.md queue 1 #4)"
-            )
         self.cfg = cfg
         n = max(cfg.nlayers, 1)
         dims_in = [cfg.in_dim] + [cfg.hidden_dim] * (n - 1)
@@ -60,7 +70,9 @@ class DINOHead(nn.Module):
         for i, (di, do) in enumerate(zip(dims_in, dims_out)):
             layers.append(Linear(di, do, gen))
             if i < n - 1:
-                layers.append(nn.GELU())  # Sequential index 2*j holds dense layer j
+                if cfg.use_bn:
+                    layers.append(BatchNorm(do))
+                layers.append(nn.GELU())
         self.mlp = nn.Sequential(*layers)
         self.last_layer = WeightNormLinear(cfg.bottleneck_dim, cfg.out_dim, gen)
 
@@ -72,10 +84,15 @@ def dino_head_forward(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
     """x (B, in_dim) f32 -> logits (B, out_dim) f32."""
     dt = head.cfg.compute_dtype
     y = x.to(dt)
-    dense = [m for m in head.mlp if isinstance(m, Linear)]
-    for i, lin in enumerate(dense):
-        y = linear(y, lin)
-        if i < len(dense) - 1:
+    for m in head.mlp:
+        if isinstance(m, Linear):
+            y = linear(y, m)
+        elif isinstance(m, BatchNorm):
+            y32 = y.float()
+            mean = y32.mean(dim=0, keepdim=True)
+            var = (y32 - mean).square().mean(dim=0, keepdim=True)
+            y = ((y32 - mean) * torch.rsqrt(var + 1e-5) * m.weight + m.bias).to(dt)
+        else:
             y = F.gelu(y, approximate="none")
     y = y.float()
     y = y / y.norm(dim=-1, keepdim=True).clamp_min(1e-12)

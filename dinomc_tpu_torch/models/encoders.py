@@ -1,11 +1,14 @@
-"""Encoder registry: the ViTs and Swin-T.
+"""Encoder registry: the ViTs, Swin-T and the ResNets.
 
 Counterpart of ``dinomc_tpu/models/encoders.py``: one interface the DINO
-trainer calls without knowing the architecture. The ViTs and Swin-T are
-ported; every other architecture raises ``NotImplementedError`` naming its
-ROADMAP.md item. Neither has BatchNorm state, so ``apply`` returns the
-embeddings alone. Only the ViTs pack two crop batches into one forward:
-Swin's shifted windows would mix them.
+and classification trainers call without knowing the architecture. The
+ViTs, Swin-T, ResNet-50, WRN-50-2 and the micro ``resnet_test`` are ported;
+XCiT raises ``NotImplementedError`` naming its ROADMAP.md item. The
+ResNets' BatchNorm state lives in the modules' buffers: ``apply`` with
+``train`` normalizes by the batch and moves them in place, where the JAX
+``apply`` returns a new state tree, so ``apply`` returns the embeddings
+alone. Only the ViTs pack two crop batches into one forward: Swin's shifted
+windows and the convolutions would mix them.
 """
 
 from __future__ import annotations
@@ -15,14 +18,13 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from dinomc_tpu_torch.models import resnet as rn
 from dinomc_tpu_torch.models import swin as sw
 from dinomc_tpu_torch.models import vit as vt
 
-Encoder = Union[vt.VisionTransformer, sw.SwinTransformer]
+Encoder = Union[vt.VisionTransformer, sw.SwinTransformer, rn.ResNet]
 
 _NOT_PORTED = {
-    "resnet50": "queue 1 #13 (convnets)",
-    "wide_resnet50_2": "queue 1 #13 (convnets)",
     "xcit_small_12": "queue 1 #15 (models/xcit.py)",
     "xcit_medium_24": "queue 1 #15 (models/xcit.py)",
 }
@@ -30,7 +32,9 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
-    arch: str  # vit_tiny | vit_small | vit_base | vit_test | swin_t
+    # vit_tiny | vit_small | vit_base | vit_test | swin_t | resnet50 |
+    # wide_resnet50_2 | resnet_test
+    arch: str
     patch_size: int = 16  # ViT only: Swin-T's patch is 4, as in the JAX package
     img_size: int = 224
     drop_path_rate: float = 0.0  # student only
@@ -39,7 +43,7 @@ class EncoderConfig:
     gelu_approx: bool = True
 
     def __post_init__(self):
-        if not (self.is_vit or self.arch == "swin_t"):
+        if not (self.is_vit or self.has_bn or self.arch == "swin_t"):
             item = _NOT_PORTED.get(self.arch, "the encoder queue")
             raise NotImplementedError(
                 f"encoder {self.arch!r} is not ported to PyTorch yet (ROADMAP.md {item})"
@@ -48,6 +52,11 @@ class EncoderConfig:
     @property
     def is_vit(self) -> bool:
         return self.arch in vt.VIT_FACTORIES
+
+    @property
+    def has_bn(self) -> bool:
+        """The convnets: BatchNorm with running statistics."""
+        return self.arch in rn.RESNET_FACTORIES
 
     @property
     def supports_packing(self) -> bool:
@@ -72,23 +81,35 @@ class EncoderConfig:
             gelu_approx=self.gelu_approx,
         )
 
+    def resnet_config(self) -> rn.ResNetConfig:
+        return rn.RESNET_FACTORIES[self.arch](compute_dtype=self.compute_dtype)
+
     @property
     def embed_dim(self) -> int:
-        return self.vit_config().embed_dim if self.is_vit else self.swin_config().out_dim
+        if self.is_vit:
+            return self.vit_config().embed_dim
+        if self.has_bn:
+            return self.resnet_config().out_dim
+        return self.swin_config().out_dim
 
     def build(self, gen: Optional[torch.Generator] = None) -> Encoder:
         """A freshly initialized encoder (parameters on the CPU)."""
         if self.is_vit:
             return vt.VisionTransformer(self.vit_config(), gen)
+        if self.has_bn:
+            return rn.ResNet(self.resnet_config(), gen)
         return sw.SwinTransformer(self.swin_config(), gen)
 
     def apply(
         self, model: Encoder, x: torch.Tensor, train: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """x (B, H, W, 3) -> (B, embed_dim) f32 embeddings."""
+        """x (B, H, W, 3) -> (B, embed_dim) f32 embeddings. A convnet with
+        ``train`` moves its BatchNorm buffers, once a BatchNorm a call."""
         if self.is_vit:
             return vt.vit_forward(model, x, generator, not train)
+        if self.has_bn:
+            return rn.resnet_forward(model, x, train)
         return sw.swin_forward(model, x, generator, not train)
 
     def apply_packed(

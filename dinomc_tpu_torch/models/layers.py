@@ -1,4 +1,5 @@
-"""Convolution and normalization building blocks of the segmentation head.
+"""Convolution and normalization building blocks of the segmentation head
+and the ResNets.
 
 Counterpart of ``dinomc_tpu/models/layers.py``, which replaces the mmcv
 ``ConvModule`` layers of the reference's mmseg heads. Modules hold
@@ -28,7 +29,8 @@ def _he_normal(shape, gen: Optional[torch.Generator]) -> nn.Parameter:
 
 
 class Conv2d(nn.Module):
-    """Stride-1 "same" convolution: weight (out, in, k, k), optional bias."""
+    """Convolution weight (out, in, k, k) and optional bias; applied by
+    ``conv_apply``."""
 
     def __init__(self, k: int, c_in: int, c_out: int, gen=None, bias: bool = True):
         super().__init__()
@@ -55,12 +57,16 @@ class ConvBNReLU(nn.Module):
         self.bn = BatchNorm(c_out)
 
 
-def conv_apply(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C', H, W); odd kernels padded k // 2 each side,
-    the JAX package's "SAME" at stride 1."""
+def conv_apply(conv: Conv2d, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C', H / stride, W / stride); odd kernels padded
+    k // 2 on each side. At stride 1 that is the JAX package's "SAME"; at
+    stride 2 it is the torch-style integer padding the JAX ResNet passes
+    (7x7 pad 3, 3x3 pad 1), and for a 1x1 kernel pad 0, which is what "SAME"
+    comes to there."""
     dt = x.dtype
     bias = None if conv.bias is None else conv.bias.to(dt)
-    return F.conv2d(x, conv.weight.to(dt), bias, padding=conv.weight.shape[-1] // 2)
+    return F.conv2d(x, conv.weight.to(dt), bias, stride=stride,
+                    padding=conv.weight.shape[-1] // 2)
 
 
 def bn_apply(

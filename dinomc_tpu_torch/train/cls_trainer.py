@@ -7,10 +7,14 @@ optional label smoothing, or ``MultiLabelSoftMarginLoss`` with
 ``multilabel`` (``main_bigearthnet.py``). With ``freeze_backbone`` the
 features are computed without autograd, so the backward never enters the
 backbone, and the optimizer's frozen mask leaves the backbone's parameters
-and state untouched. The classifier is a (D, C) ``kernel`` and a ``bias``,
-as in the JAX package. The step updates ``ClsTrainState`` in place.
-Encoders come from ``models/encoders.EncoderConfig`` (the ViTs and Swin-T);
-the others raise with their ROADMAP.md item.
+and optimizer state untouched. A ResNet's BatchNorm normalizes by the batch
+in the train step and moves its running statistics in both modes, as the
+JAX step keeps ``new_bn`` whether the backbone is frozen or not;
+``cls_predict`` normalizes by the running statistics. The classifier is a
+(D, C) ``kernel`` and a ``bias``, as in the JAX package. The step updates
+``ClsTrainState`` in place. Encoders come from
+``models/encoders.EncoderConfig`` (the ViTs, Swin-T and the ResNets); XCiT
+raises with its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -87,7 +91,8 @@ def cls_logits(model: nn.ModuleDict, images: torch.Tensor, cfg: ClsConfig, train
     enc = cfg.encoder()
     if cfg.freeze_backbone:
         # linear-probe mode: no autograd through the backbone, so the
-        # backward skips it (the frozen mask alone would still pay for it)
+        # backward skips it (the frozen mask alone would still pay for it);
+        # BatchNorm still moves its running statistics when ``train``
         with torch.no_grad():
             feats = enc.apply(model["backbone"], images, train, generator)
     else:
@@ -140,5 +145,5 @@ def cls_train_step(
 
 @torch.no_grad()
 def cls_predict(model: nn.ModuleDict, images: torch.Tensor, cfg: ClsConfig) -> torch.Tensor:
-    """Eval-mode logits (B, C)."""
+    """Eval-mode logits (B, C): BatchNorm by its running statistics."""
     return cls_logits(model, images, cfg)

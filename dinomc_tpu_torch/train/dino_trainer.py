@@ -1,16 +1,23 @@
-"""DINO-MC training step for the ViTs, in PyTorch.
+"""DINO-MC training step for the ViTs, Swin-T and the ResNets, in PyTorch.
 
 Counterpart of ``dinomc_tpu/train/dino_trainer.py``; parity target the
 reference ``train_one_epoch`` (``main_dino_mc.py:356-416``). One step:
 teacher forward over the global crops (no grad), student forward over every
-crop with local size-buckets packed two to a sequence, the weight-normed
-head and the centred DINO loss, the backward pass, per-tensor clipping, the
-last-layer freeze, the optimizer (AdamW or SGD), the teacher EMA (which
-reads the *new* student) and the centre update.
+crop (ViT local size-buckets packed two to a sequence; Swin and the convnets
+one forward a bucket), the weight-normed head and the centred DINO loss, the
+backward pass, per-tensor clipping, the last-layer freeze, the optimizer
+(AdamW, SGD or LARS), the teacher EMA (which reads the *new* student) and
+the centre update.
 
 Where the JAX step returns a new state, this one updates ``DinoTrainState``
 in place under ``torch.no_grad()``: the student parameters, the optimizer
-state, the teacher (EMA), the centre and the step counter.
+state, the teacher (EMA), the centre and the step counter. The convnets'
+BatchNorm running statistics are module buffers, moved in place by the
+forwards that use them: the teacher runs its BatchNorm in train mode, as the
+reference never calls ``.eval()``, and moves its own statistics once a step;
+the student moves its own once a crop-size bucket, globals first, then the
+local buckets in ascending size, the JAX package's order. The EMA covers
+parameters only, never these buffers.
 Matmuls run in ``compute_dtype`` with explicit casts; LayerNorm statistics,
 the head's normalization, the logits, the loss and the centre stay f32, and
 TF32 is switched off for f32 matmuls and convolutions
@@ -126,7 +133,7 @@ def init_dino_train_state(cfg: DinoConfig, seed: int = 0, device="cpu") -> DinoT
     """Student initialized on the CPU from ``seed`` (so every device starts
     from the same weights), moved to ``device``; the teacher is a copy
     (reference ``main_dino_mc.py:262-265``)."""
-    opt_init, _ = optim.OPTIMIZERS[cfg.optimizer]  # 'lars' raises: ROADMAP.md queue 1 #13
+    opt_init, _ = optim.OPTIMIZERS[cfg.optimizer]
     set_matmul_precision()
     gen = torch.Generator().manual_seed(seed)
     student = nn.ModuleDict({
@@ -252,10 +259,14 @@ def dino_loss_and_grads(
     cfg: DinoConfig,
 ):
     """Teacher + student multi-crop forwards, DINO loss, student grads.
-    Returns (loss, {param name: grad}, new_center); changes no state."""
+    Returns (loss, {param name: grad}, new_center). Parameters, optimizer
+    state and centre are left as they are; a convnet's forwards move the
+    teacher's and the student's BatchNorm running statistics, as the JAX
+    function's returned states do."""
     enc_s, enc_t = cfg.encoder(student=True), cfg.encoder(student=False)
     with torch.no_grad():
-        teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, False, None)
+        teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, enc_t.has_bn,
+                                        None)
     student_logits = _forward_crops(state.student, global_crops, local_crops, enc_s, True, generator)
     loss, new_center = dino_loss(
         student_logits, teacher_logits, state.center, teacher_temp,
@@ -305,7 +316,8 @@ def _finish_step(state, grads, loss, new_center, lr, wd, ema_m, epoch, cfg: Dino
     _, opt_update = optim.OPTIMIZERS[cfg.optimizer]
     opt_update(grads, state.opt_state, params, lr, wd, wd_m, frozen_mask=frozen)
 
-    # EMA teacher from the updated student (main_dino_mc.py:403-406)
+    # EMA teacher from the updated student (main_dino_mc.py:403-406), over
+    # parameters only: BatchNorm statistics come from the teacher's forwards
     for t, s in zip(state.teacher.parameters(), state.student.parameters()):
         t.mul_(ema_m).add_(s.float(), alpha=1.0 - ema_m)
     state.center = new_center

@@ -1,6 +1,6 @@
-"""AdamW, SGD and gradient transforms for the trainers.
+"""AdamW, SGD, LARS and gradient transforms for the trainers.
 
-Counterpart of ``dinomc_tpu/train/optim.py`` (AdamW and SGD). Parameters,
+Counterpart of ``dinomc_tpu/train/optim.py``. Parameters,
 gradients, masks and moments are dictionaries keyed by the student's
 parameter names (``backbone.blocks.0.attn.qkv.weight``, ...). Semantics are
 the JAX package's:
@@ -18,12 +18,12 @@ The JAX package stacks the ViT's blocks along a leading depth axis, and
 both rules act on its leaves (``stacked_name``): one joint norm clips all
 blocks' copies of a tensor, and a block's LayerNorm scale, one row of a
 (depth, D) leaf, is decayed. The port keeps one tensor per block, as the
-reference's state dict does, and applies the rules to the stacked groups.
+reference's state dict does, and applies the rules to the stacked groups;
+LARS's trust ratio likewise takes the joint norm of a group.
 
-Unlike the functional JAX version, ``clip_gradients_per_tensor``,
-``adamw_update`` and ``sgd_update`` update their tensors in place under
-``torch.no_grad()``. ``OPTIMIZERS`` maps a name to (init, update), as in
-JAX; LARS is not ported yet (ROADMAP.md queue 1 #13).
+Unlike the functional JAX version, ``clip_gradients_per_tensor`` and the
+updates change their tensors in place under ``torch.no_grad()``.
+``OPTIMIZERS`` maps a name to (init, update), as in JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +45,14 @@ def stacked_name(name: str) -> str:
     a tensor is one slice of a leaf stacked along the depth axis
     (``backbone.blocks.3.norm1.weight`` -> ``backbone.blocks.*.norm1.weight``)."""
     return _BLOCK.sub(".blocks.*.", name)
+
+
+def _groups(names) -> Dict[str, List[str]]:
+    """Parameter names by the JAX package's leaf (``stacked_name``)."""
+    groups: Dict[str, List[str]] = {}
+    for name in names:
+        groups.setdefault(stacked_name(name), []).append(name)
+    return groups
 
 
 def wd_mask(params: Mapping[str, torch.Tensor]) -> Dict[str, float]:
@@ -70,10 +78,8 @@ def clip_gradients_per_tensor(grads: Tensors, clip: float) -> Tensors:
     """Scale each stacked leaf's gradients in place by
     min(1, clip / (||g|| + 1e-6)), ||g|| the norm over all of the leaf's
     tensors. No host sync: the coefficient stays on the device."""
-    groups: Dict[str, List[torch.Tensor]] = {}
-    for name, g in grads.items():
-        groups.setdefault(stacked_name(name), []).append(g)
-    for gs in groups.values():
+    for names in _groups(grads).values():
+        gs = [grads[n] for n in names]
         # sum of squares, not vector_norm: torch's CPU norm kernel drifts by
         # ~1e-4 relative over a 4M-element tensor in float32; sum does not
         norm = torch.stack([g.float().square().sum() for g in gs]).sum().sqrt()
@@ -158,12 +164,52 @@ def sgd_update(
         p.sub_((m * lr).to(p.dtype))
 
 
-def _lars_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("optimizer 'lars' is not ported yet (ROADMAP.md queue 1 #13)")
+def lars_init(params: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Zero f32 momentum buffers per parameter."""
+    return sgd_init(params)
+
+
+@torch.no_grad()
+def lars_update(
+    grads: Tensors,
+    state: Dict[str, Dict],
+    params: Mapping[str, torch.Tensor],
+    lr: float,
+    weight_decay: float,
+    wd_mask_tree: Mapping[str, float],
+    momentum: float = 0.9,
+    eta: float = 0.001,
+    frozen_mask: Optional[Mapping[str, float]] = None,
+) -> None:
+    """LARS, BarlowTwins flavour (reference ``utils/utils.py:570-608``), in
+    place. On a regularized leaf (``wd_mask`` 1) the gradient gains
+    wd * p and is scaled by the trust ratio eta * ||p|| / ||g + wd * p||
+    (1 where either norm is 0), both norms over the whole stacked leaf; the
+    others (bias and 1-D, the reference's ``exclude_bias_and_norm``) take the
+    raw gradient. Then m = momentum * m + g and p -= lr * m. A frozen
+    parameter keeps its value and its buffer. No host sync: the ratio stays
+    on the device."""
+    for names in _groups(params).values():
+        live = [n for n in names if not (frozen_mask is not None and frozen_mask[n] > 0.5)]
+        if not live:
+            continue
+        gs = {n: grads[n].float() for n in names}
+        if wd_mask_tree[names[0]]:
+            gs = {n: g + weight_decay * params[n].float() for n, g in gs.items()}
+            # sums of squares, as clip_gradients_per_tensor, for the same reason
+            p_norm = torch.stack([params[n].float().square().sum() for n in names]).sum().sqrt()
+            g_norm = torch.stack([g.square().sum() for g in gs.values()]).sum().sqrt()
+            q = torch.where((p_norm > 0) & (g_norm > 0), eta * p_norm / (g_norm + 1e-12),
+                            torch.ones_like(p_norm))
+            gs = {n: g * q for n, g in gs.items()}
+        for n in live:
+            m = state["mu"][n]
+            m.mul_(momentum).add_(gs[n])
+            params[n].sub_((m * lr).to(params[n].dtype))
 
 
 OPTIMIZERS = {
     "adamw": (adamw_init, adamw_update),
     "sgd": (sgd_init, sgd_update),
-    "lars": (_lars_not_ported, _lars_not_ported),
+    "lars": (lars_init, lars_update),
 }

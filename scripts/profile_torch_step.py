@@ -3,13 +3,16 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t]
+    python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t|resnet50]
     python scripts/profile_torch_step.py --remat_policy off --mlp_impl fused
     python scripts/profile_torch_step.py --task seg [--train_backbone]
 
 ``--task dino`` (the default) drives the port's DINO-MC step
-(``dinomc_tpu_torch``) at ViT-S/8 (or Swin-T with ``--arch swin_t``),
-out_dim 65536, batch 8, under the ViT's ``--remat_policy`` (the CLI's, or
+(``dinomc_tpu_torch``) at ViT-S/8 (or Swin-T with ``--arch swin_t``, or
+ResNet-50 / WRN-50-2 with ``--arch resnet50`` / ``wide_resnet50_2`` under
+the DINO convnet recipe: LARS, BN in the head, lr 0.3 linearly scaled,
+weight decay 1e-6), out_dim 65536, batch 8, under the ViT's
+``--remat_policy`` (the CLI's, or
 ``off`` for ``ViTConfig.remat=False``) and ``--mlp_impl``; ``--task seg``
 its UPerNet fine-tune step at ViT-S/8, 512 px (4097 tokens), batch 4, 8
 classes, decoder-only unless ``--train_backbone``. Weights come from a
@@ -19,7 +22,7 @@ two windows:
 
 1. **unprofiled**, 5 steps: CUDA events split each step into
    augmentation, forward and backward (DINO: teacher + student), and the
-   optimizer (DINO: clip + AdamW + EMA; seg: AdamW); the host clock, with
+   optimizer (DINO: clip + AdamW or LARS + EMA; seg: AdamW); the host clock, with
    the device synchronized, times the whole step. Medians are reported.
 2. **profiled**, 3 steps under ``torch.profiler``. From the
    exported trace: device busy time, the union of kernel, memcpy and memset
@@ -91,16 +94,18 @@ def _dino_step(dev, arch: str, remat_policy: str, mlp_impl: str):
     )
 
     batch = 8
+    convnet = arch in ("resnet50", "wide_resnet50_2")
     args = get_args_parser().parse_args([
         "--arch", arch, "--patch_size", "8", "--out_dim", "65536",
         "--batch_size_per_gpu", str(batch),
         "--remat_policy", "attn" if remat_policy == "off" else remat_policy,
-    ])
+    ] + (["--optimizer", "lars", "--use_bn_in_head", "true", "--lr", "0.3",
+          "--weight_decay", "1e-6", "--weight_decay_end", "1e-6"] if convnet else []))
     niter = 1000
     mc_cfg, cfg = build_config(args, niter)
     sch = build_schedules(args, batch, niter)
     state = init_dino_train_state(cfg, args.seed, dev)
-    if arch != "swin_t":
+    if arch.startswith("vit_"):
         for model in (state.student, state.teacher):
             model["backbone"].cfg = dataclasses.replace(
                 model["backbone"].cfg, remat=remat_policy != "off", mlp_impl=mlp_impl)
@@ -120,7 +125,7 @@ def _dino_step(dev, arch: str, remat_policy: str, mlp_impl: str):
                      float(sch.teacher_momentum[it]), epoch, cfg)
         ev[3].record()
 
-    return step, batch, ("aug", "fwd_bwd", "clip_adamw_ema")
+    return step, batch, ("aug", "fwd_bwd", "clip_optimizer_ema")
 
 
 def _seg_step(dev, train_backbone: bool):
@@ -161,8 +166,9 @@ def main() -> int:
     p.add_argument("--task", default="dino", choices=["dino", "seg"])
     p.add_argument("--train_backbone", action="store_true",
                    help="seg: train the ViT too (default: decoder-only)")
-    p.add_argument("--arch", default="vit_small", choices=["vit_small", "swin_t"],
-                   help="dino: the encoder (ViT-S/8 or Swin-T)")
+    p.add_argument("--arch", default="vit_small",
+                   choices=["vit_small", "swin_t", "resnet50", "wide_resnet50_2"],
+                   help="dino: the encoder (ViT-S/8, Swin-T or a ResNet)")
     p.add_argument("--remat_policy", default="attn", choices=["off", *sorted(REMAT_POLICIES)],
                    help="dino, ViT: the block remat policy ('off': no remat)")
     p.add_argument("--mlp_impl", default="dense", choices=list(MLP_IMPLS),

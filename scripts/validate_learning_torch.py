@@ -10,7 +10,11 @@ out_dim 1024, AdamW, teacher momentum 0.99 -> 1.0, batch 64; the same
 frozen 5-NN on 128 px images resized to 96 px (``jax.image.resize``'s
 antialiased bilinear, ``ops/augment.resize``), the same linear probe
 averaged over 3 split seeds, and the same endpoint averaging (the final
-step and ``--endpoint_gap`` and twice that before it).
+step and ``--endpoint_gap`` and twice that before it). ``--arch
+resnet_test`` and ``resnet50`` run the JAX script's convnet recipe: LARS at
+base lr 0.3 * batch / 256 and weight decay 1e-6, with BatchNorm in the
+head (``docs/quality.md`` §2 says why those values); the k-NN and the probe
+read the teacher's features with its running statistics.
 
 Exit 0 only if the k-NN accuracy after >= max(before + 5, 50) (chance is
 12.5%). The last line of standard output is one JSON object with the
@@ -41,7 +45,7 @@ def get_args_parser() -> argparse.ArgumentParser:
                     help="also print k-NN accuracy every N steps (0 = only before/after)")
     ap.add_argument("--arch", default="vit_tiny",
                     choices=["vit_tiny", "vit_test", "swin_t", "resnet_test", "resnet50"],
-                    help="vit_test is the tests' tiny ViT; the convnets are not ported yet")
+                    help="vit_test is the tests' tiny ViT; the convnets run LARS and a BN head")
     ap.add_argument("--world", default="v1", choices=["v1", "v2", "v2m"],
                     help="texture world (utils/synthetic.TEXTURES)")
     ap.add_argument("--seed", type=int, default=0, help="seed of init, data and augmentation")
@@ -106,10 +110,6 @@ def run(args) -> dict:
     )
     from dinomc_tpu_torch.utils.synthetic import make_texture_dataset
 
-    if args.arch in ("resnet_test", "resnet50"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: the convnets (BatchNorm + LARS) are not ported yet "
-            "(ROADMAP.md queue 1 #13)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")
@@ -120,18 +120,26 @@ def run(args) -> dict:
     n_train = int(n * 0.8)
     labels = torch.from_numpy(labels_np).to(device)
 
+    is_bn = args.arch in ("resnet_test", "resnet50")
     cfg = DinoConfig(
         arch=args.arch, patch_size=16, out_dim=1024,
         niter_per_ep=50, global_crop_size=96, drop_path_rate=0.0, freeze_last_layer=1,
+        # the reference's convnet recipe: LARS and BN in the head
+        # (main_dino_mc.py:250-256,286)
+        optimizer="lars" if is_bn else "adamw", use_bn_in_head=is_bn,
     )
     mc = MultiCropConfig(global_size=96, global_scale=(0.4, 1.0),
                          local_sizes=(64, 48), local_scale=(0.1, 0.4))
     epochs = max(args.steps // cfg.niter_per_ep, 1)
-    base_lr = 1e-3
+    # LARS's trust ratio scales every update to ~eta * lr * ||w||, so it
+    # needs DINO's convnet lr, and weight decay small enough not to turn
+    # the updates into pure shrinkage (docs/quality.md §2)
+    base_lr = 0.3 * args.batch / 256.0 if is_bn else 1e-3
+    wd = (1e-6, 1e-6) if is_bn else (0.04, 0.2)
     sch = DinoSchedules(
         lr=schedules.cosine_scheduler(base_lr, base_lr * 1e-2, epochs, cfg.niter_per_ep,
                                       warmup_epochs=2),
-        wd=schedules.cosine_scheduler(0.04, 0.2, epochs, cfg.niter_per_ep),
+        wd=schedules.cosine_scheduler(*wd, epochs, cfg.niter_per_ep),
         # 0.99 -> 1.0: a 0.9995 teacher lags too long at a few thousand steps
         teacher_momentum=schedules.cosine_scheduler(0.99, 1.0, epochs, cfg.niter_per_ep),
         teacher_temp=schedules.teacher_temp_schedule(0.04, 0.07, max(epochs // 3, 1), epochs),

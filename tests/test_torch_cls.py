@@ -79,10 +79,15 @@ def test_sgd_update_matches_jax_per_tensor():
 
 
 def test_lars_still_raises_with_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="#13"):
-        toptim.OPTIMIZERS["lars"][0]({})
-    with pytest.raises(NotImplementedError, match="#13"):
-        tdino.init_dino_train_state(tdino.DinoConfig(arch="vit_test", patch_size=4, out_dim=16,
+    """LARS is ported (its parity tests are in tests/test_torch_convnet_step.py):
+    ``OPTIMIZERS['lars']`` builds a train state. What a LARS run still
+    cannot use is refused with its ROADMAP.md item: an XCiT encoder (#15)."""
+    assert toptim.OPTIMIZERS["lars"] == (toptim.lars_init, toptim.lars_update)
+    state = tdino.init_dino_train_state(tdino.DinoConfig(arch="vit_test", patch_size=4,
+                                                         out_dim=16, optimizer="lars"))
+    assert set(state.opt_state) == {"mu"}
+    with pytest.raises(NotImplementedError, match="#15"):
+        tdino.init_dino_train_state(tdino.DinoConfig(arch="xcit_small_12", out_dim=16,
                                                      optimizer="lars"))
 
 
@@ -179,8 +184,8 @@ def test_three_cls_steps_match_jax(arch, mode, monkeypatch):
 
 
 def test_unported_encoders_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="#13"):
-        tcls.init_cls_train_state(tcls.ClsConfig(arch="resnet50"))
+    """The convnets are ported (``resnet50`` is 2048 wide); XCiT is not."""
+    assert tcls.ClsConfig(arch="resnet50").encoder().embed_dim == 2048
     with pytest.raises(NotImplementedError, match="#15"):
         tcls.init_cls_train_state(tcls.ClsConfig(arch="xcit_small_12"))
 
@@ -300,8 +305,10 @@ def test_cli_evaluates_a_finetuned_pth(tmp_path, capsys):
 def test_cli_refusals(tmp_path):
     with pytest.raises(SystemExit, match="smaller than the batch"):
         _cli(tmp_path, "--batch_size_per_gpu", "128")
-    args = eurosat.get_args_parser().parse_args(["--device", "cpu"])  # default --arch resnet50
-    with pytest.raises(NotImplementedError, match="#13"):
+    # the default --arch resnet50 runs since the convnets were ported; XCiT
+    # is refused with its ROADMAP.md item
+    args = eurosat.get_args_parser().parse_args(["--device", "cpu", "--arch", "xcit_small_12"])
+    with pytest.raises(NotImplementedError, match="#15"):
         eurosat.run(args)
     if not torch.cuda.is_available():  # no fallback to the CPU
         args = eurosat.get_args_parser().parse_args(["--arch", "vit_tiny"])
@@ -359,7 +366,29 @@ def test_learning_script_knn_before_is_the_jax_scripts(monkeypatch, capsys):
     assert result["ok"] is False and result["endpoint_knn"] == []
 
 
-def test_learning_script_refuses_the_convnets():
+def test_learning_script_refuses_the_convnets(monkeypatch, capsys):
+    """The script no longer refuses the convnets: ``--arch resnet_test``
+    runs the JAX script's convnet recipe (LARS, BN in the head, base lr
+    0.3 * batch / 256, weight decay 1e-6). With ``--steps 0`` it reports
+    the k-NN before pretraining and, with no endpoint, exits 1."""
     script = _learning_script()
-    with pytest.raises(NotImplementedError, match="#13"):
-        script.main(["--arch", "resnet_test", "--device", "cpu"])
+    seen = {}
+    init, schedules = tdino.init_dino_train_state, tdino.DinoSchedules
+
+    def spy_init(cfg, seed=0, device="cpu"):
+        seen["cfg"] = cfg
+        return init(cfg, seed, device)
+
+    def spy_schedules(**kw):
+        seen["sch"] = schedules(**kw)
+        return seen["sch"]
+
+    monkeypatch.setattr(tdino, "init_dino_train_state", spy_init)
+    monkeypatch.setattr(tdino, "DinoSchedules", spy_schedules)
+    assert script.main(["--steps", "0", "--arch", "resnet_test", "--n_per_class", "4",
+                        "--batch", "32", "--device", "cpu"]) == 1
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert 0.0 <= result["knn_before"] <= 100.0 and result["arch"] == "resnet_test"
+    assert seen["cfg"].optimizer == "lars" and seen["cfg"].use_bn_in_head
+    assert float(seen["sch"].lr.max()) == pytest.approx(0.3 * 32 / 256)
+    assert np.all(seen["sch"].wd == np.float32(1e-6))

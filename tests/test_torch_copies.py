@@ -26,6 +26,7 @@ from dinomc_tpu.data import packed as jpacked
 from dinomc_tpu.data import seco as jseco
 from dinomc_tpu.eval import retrieval as jret
 from dinomc_tpu.models import dino_head as jhead
+from dinomc_tpu.models import resnet as jrn
 from dinomc_tpu.models import upernet as jup
 from dinomc_tpu.models import vit as jvit
 from dinomc_tpu.utils import logging as jlog
@@ -64,6 +65,14 @@ def test_vit_and_head_state_dicts_are_the_exporters(prefix):
         in_dim=32, out_dim=64)))
     _assert_same(state_dicts.dino_head_state_dict(head, prefix),
                  torch_export.dino_head_state_dict(head, prefix))
+
+
+@pytest.mark.parametrize("prefix,num_classes", [("", 0), ("backbone.", 0), ("", 7)])
+def test_resnet_state_dict_is_the_exporter(prefix, num_classes):
+    cfg = jrn.resnet_test(num_classes=num_classes)
+    params, state = jax.device_get(jrn.init_resnet(jax.random.PRNGKey(3), cfg))
+    _assert_same(state_dicts.resnet_state_dict(params, state, prefix),
+                 torch_export.resnet_state_dict(params, state, prefix))
 
 
 @pytest.mark.parametrize("neck", [False, True])

@@ -109,8 +109,21 @@ def test_dino_head_matches_jax(norm_last_layer):
 
 
 def test_head_refuses_bn():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thead.DINOHead(thead.DINOHeadConfig(use_bn=True))
+    """BN-in-head is ported (its parity tests are in tests/test_torch_resnet.py),
+    but the JAX package's exporter, and so the port's copy of it, refuse a
+    BN head's tree: ``ckpt/from_jax.head_state_dict`` maps it by hand, to
+    the reference's shifted indices."""
+    from dinomc_tpu.ckpt.torch_export import dino_head_state_dict as jexport_head
+    from dinomc_tpu_torch.ckpt.from_jax import head_state_dict
+    from dinomc_tpu_torch.ckpt.state_dicts import dino_head_state_dict
+
+    jcfg = jhead.DINOHeadConfig(in_dim=32, out_dim=64, use_bn=True, compute_dtype=jnp.float32)
+    params = jax.device_get(jhead.init_dino_head(jax.random.PRNGKey(1), jcfg))
+    for export in (jexport_head, dino_head_state_dict):
+        with pytest.raises(AssertionError, match="BN-in-head"):
+            export(params)
+    head = thead.DINOHead(thead.DINOHeadConfig(in_dim=32, out_dim=64, use_bn=True))
+    assert set(head_state_dict(params)) == set(head.state_dict())
 
 
 def test_dino_loss_and_center_match_jax():
@@ -201,7 +214,9 @@ def test_plan_packing_bench_sizes():
 
 
 def test_non_vit_encoders_name_their_roadmap_item():
-    for arch in ("resnet50", "xcit_small_12"):
+    """Swin-T and the convnets are ported; XCiT names its ROADMAP.md item."""
+    assert EncoderConfig(arch="resnet50").has_bn and not EncoderConfig(arch="swin_t").has_bn
+    for arch in ("xcit_small_12", "xcit_medium_24"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             EncoderConfig(arch=arch)
 
