@@ -118,6 +118,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -523,10 +524,12 @@ def _train_run(torch, smi, train_args, tag, steps=5):
           f"teacher-student max|gap| {gap:.3e}")
     if not (moved > 0 and ema > 0 and gap > 0):
         raise AssertionError("student did not train or teacher did not follow by EMA")
-    med = sorted(summary.step_ms)[len(summary.step_ms) // 2]
+    warm = summary.step_ms[1:]  # the first step builds cuDNN plans and caches
+    med = statistics.median(warm)
     print(f"[{tag}] step ms (CUDA events, augmentation + step): "
           f"{[round(x, 3) for x in summary.step_ms]}")
-    print(f"[{tag}] median step {med:.3f} ms, {8 / (med / 1e3):.3f} images/s, "
+    print(f"[{tag}] median of the {len(warm)} warm steps {med:.3f} ms, "
+          f"{8 / (med / 1e3):.3f} images/s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
           f"wall {wall:.1f} s  [{smi}]")
     return launches, mc_cfg, cfg, st, init
@@ -1054,8 +1057,6 @@ def _cls_steps(torch, state, cfg, steps, gen, tag, smi):
     step but the first (a warm-up). Returns the launches over the steps.
     A step's time is CUDA events around transform + step, the host's
     issuing in it (the loss is read each step)."""
-    import statistics
-
     from dinomc_tpu_torch.ops import augment as aug
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.train.cls_trainer import cls_train_step
@@ -1279,7 +1280,6 @@ def phase_convnets(torch, smi):
     """The ResNets: DINO-MC pretraining, the EuroSAT CLI and fine-tune steps.
     Returns the launches of the phase's main paths, summed by kernel."""
     import dataclasses
-    import statistics
 
     from dinomc_tpu_torch.cli import eurosat
     from dinomc_tpu_torch.ops.hopper import _build

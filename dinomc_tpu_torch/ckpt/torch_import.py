@@ -15,9 +15,10 @@ full-model ``state_dict`` with the classifier at ``head.weight`` /
 torchvision convnets: ``load_cls_checkpoint`` reads one into the port's
 ``{'backbone', 'fc'}`` module, whose ``fc.kernel`` is that weight
 transposed, and ``save_cls_checkpoint`` writes one, BatchNorm buffers
-included. ``load_dino_head`` reads a reference ``DINOHead``, whose
-BatchNorm-in-head running statistics the port's head (as the JAX one) has
-no place for: they are dropped.
+included; ``classifier_name`` decides the name for both. A DINO-MC
+checkpoint's head, with the running statistics of a BatchNorm-in-head that
+the port's head (as the JAX one) has no place for, is never read:
+``load_backbone`` takes the backbone's tensors alone.
 """
 
 from __future__ import annotations
@@ -28,9 +29,6 @@ import torch
 import torch.nn as nn
 
 from dinomc_tpu_torch.models.resnet import ResNet
-
-_BN_BUFFERS = (".running_mean", ".running_var", ".num_batches_tracked")
-
 
 def load_torch_state_dict(path: str, checkpoint_key: Optional[str] = "teacher") -> Dict[str, torch.Tensor]:
     """Read a ``.pth`` file -> flat {name: CPU tensor}: ``checkpoint_key``'s
@@ -58,25 +56,17 @@ def load_backbone(module: nn.Module, path: str, checkpoint_key: Optional[str] = 
     module.load_state_dict({n: sd[n].float() for n in names}, strict=True)
 
 
-@torch.no_grad()
-def load_dino_head(head: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
-    """Load a reference ``DINOHead`` state dict (``head.`` stripped) into the
-    port's head with ``strict=True``, after dropping the running statistics
-    of its BatchNorm-in-head layers, which the port's head does not keep."""
-    keep = {k: v.float() for k, v in sd.items()
-            if not (k.startswith("mlp.") and k.endswith(_BN_BUFFERS))}
-    head.load_state_dict(keep, strict=True)
+def classifier_name(backbone: nn.Module) -> str:
+    """Where a reference classification checkpoint keeps the classifier of
+    a model on ``backbone``: ``fc`` on the torchvision convnets, ``head``
+    on ViT and Swin."""
+    return "fc" if isinstance(backbone, ResNet) else "head"
 
 
-def _classifier_name(sd: Dict[str, torch.Tensor]) -> str:
-    """``fc`` on the torchvision convnets, ``head`` on ViT and Swin."""
-    return "fc" if "fc.weight" in sd and "head.weight" not in sd else "head"
-
-
-def cls_params_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A reference fine-tuned classifier's state dict (prefixes stripped)
-    -> the port's ``{'backbone', 'fc'}`` state dict."""
-    name = _classifier_name(sd)
+def cls_params_from_torch(sd: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
+    """A reference fine-tuned classifier's state dict (prefixes stripped),
+    its classifier at ``name`` (``classifier_name``) -> the port's
+    ``{'backbone', 'fc'}`` state dict."""
     out = {f"backbone.{k}": v for k, v in sd.items() if not k.startswith(name + ".")}
     out["fc.kernel"] = sd[name + ".weight"].T.contiguous()
     out["fc.bias"] = sd[name + ".bias"]
@@ -88,7 +78,8 @@ def load_cls_checkpoint(model: nn.Module, path: str) -> None:
     """Load a reference fine-tuned classification checkpoint
     (``{'state_dict': full model, ...}``) into ``model`` with
     ``strict=True``."""
-    sd = cls_params_from_torch(load_torch_state_dict(path, checkpoint_key="state_dict"))
+    sd = cls_params_from_torch(load_torch_state_dict(path, checkpoint_key="state_dict"),
+                               classifier_name(model["backbone"]))
     model.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
 
 
@@ -98,7 +89,7 @@ def save_cls_checkpoint(path: str, model: nn.Module, epoch: int = 0,
     classification layout: ``{'epoch', 'state_dict', 'best_acc'}``, the
     classifier at ``head.weight`` (C, D) and ``head.bias``, or at ``fc.*``
     for a ResNet, whose BatchNorm buffers are in the state dict."""
-    name = "fc" if isinstance(model["backbone"], ResNet) else "head"
+    name = classifier_name(model["backbone"])
     sd = {k[len("backbone."):]: v.detach().cpu()
           for k, v in model.state_dict().items() if k.startswith("backbone.")}
     sd[name + ".weight"] = model.state_dict()["fc.kernel"].detach().cpu().T.contiguous()

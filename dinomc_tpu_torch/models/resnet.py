@@ -6,9 +6,11 @@ BigEarthNet fine-tunes and the OSCD siamese encoder
 (``main_dino_mc.py:223-229``, ``main_eurosat.py:40-48``,
 ``main_oscd.py:145-157``). The modules carry torchvision's names
 (``conv1``, ``bn1``, ``layer{1..4}.{b}.conv{1,2,3}`` / ``bn{1,2,3}``,
-``downsample.0`` / ``.1``, ``fc``), the layout
+``downsample.0`` / ``.1``), the layout
 ``dinomc_tpu.ckpt.torch_export.resnet_state_dict`` writes, so a
-torchvision ``.pth`` loads with ``strict=True``. BatchNorm's running
+torchvision ``.pth``'s backbone loads with ``strict=True``. The module is
+the backbone alone: a classifier on it is ``train/cls_trainer``'s
+``fc``, which ``ckpt/torch_import`` maps to torchvision's ``fc.*``. BatchNorm's running
 statistics are the modules' buffers: a forward with ``train=True``
 normalizes by the batch and moves them in place (``models/layers.bn_apply``),
 where the JAX function returns a new state tree.
@@ -34,7 +36,6 @@ from dinomc_tpu_torch.models import layers
 class ResNetConfig:
     stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)  # ResNet-50
     width_per_group: int = 64  # 128: wide_resnet50_2
-    num_classes: int = 0  # 0: no classifier (backbone mode)
     compute_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -76,15 +77,6 @@ class Bottleneck(nn.Module):
                 layers.Conv2d(1, c_in, c_out, gen, bias=False), layers.BatchNorm(c_out))
 
 
-class Classifier(nn.Module):
-    """torchvision's ``fc``: weight (C, 2048) drawn 0.01 * N(0, 1), zero bias."""
-
-    def __init__(self, d: int, c: int, gen):
-        super().__init__()
-        self.weight = nn.Parameter(0.01 * torch.randn(c, d, generator=gen))
-        self.bias = nn.Parameter(torch.zeros(c))
-
-
 class ResNet(nn.Module):
     """Parameters and BatchNorm buffers of one ResNet; the forward is
     ``resnet_forward``."""
@@ -103,8 +95,6 @@ class ResNet(nn.Module):
                 stage_blocks.append(Bottleneck(c_in, width, planes * 4, b == 0, gen))
                 c_in = planes * 4
             setattr(self, f"layer{stage + 1}", nn.Sequential(*stage_blocks))
-        if cfg.num_classes > 0:
-            self.fc = Classifier(cfg.out_dim, cfg.num_classes, gen)
 
     def forward(self, x, train: bool = False):
         return resnet_forward(self, x, train)
@@ -144,8 +134,5 @@ def resnet_features(
 
 
 def resnet_forward(model: ResNet, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-    """Backbone embedding (B, 2048) f32, or logits (B, num_classes) with ``fc``."""
-    _, pooled = resnet_features(model, x, train)
-    if model.cfg.num_classes > 0:
-        pooled = pooled @ model.fc.weight.t() + model.fc.bias
-    return pooled
+    """Backbone embedding (B, 2048) f32."""
+    return resnet_features(model, x, train)[1]

@@ -98,6 +98,9 @@ def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
     ["--optimizer", "lars", "--grad_accum_steps", "2"], ["--arch", "xcit_small_12"],
 ], ids=lambda f: f[0].lstrip("-") + "-" + f[1])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags):
+    """A case's id is its first flag: in [arch-resnet50] and
+    [optimizer-lars] the option refused is the unported one that follows
+    the ported convnet or LARS."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_dino(_args(tmp_path, "--max_steps", "1", *flags))
 

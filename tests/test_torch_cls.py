@@ -78,14 +78,18 @@ def test_sgd_update_matches_jax_per_tensor():
         np.testing.assert_allclose(n(ts["mu"][k]), np.asarray(js["mu"][k]), atol=1e-6)
 
 
-def test_lars_still_raises_with_its_roadmap_item():
+def test_lars_is_registered_and_builds_a_train_state():
     """LARS is ported (its parity tests are in tests/test_torch_convnet_step.py):
-    ``OPTIMIZERS['lars']`` builds a train state. What a LARS run still
-    cannot use is refused with its ROADMAP.md item: an XCiT encoder (#15)."""
+    ``OPTIMIZERS['lars']`` builds a train state with one momentum buffer."""
     assert toptim.OPTIMIZERS["lars"] == (toptim.lars_init, toptim.lars_update)
     state = tdino.init_dino_train_state(tdino.DinoConfig(arch="vit_test", patch_size=4,
                                                          out_dim=16, optimizer="lars"))
     assert set(state.opt_state) == {"mu"}
+
+
+def test_lars_still_raises_with_its_roadmap_item():
+    """What a LARS run still cannot use is refused with its ROADMAP.md
+    item: an XCiT encoder (#15)."""
     with pytest.raises(NotImplementedError, match="#15"):
         tdino.init_dino_train_state(tdino.DinoConfig(arch="xcit_small_12", out_dim=16,
                                                      optimizer="lars"))
@@ -201,6 +205,7 @@ def test_a_pth_written_by_the_port_is_read_by_jax_and_back(tmp_path):
     jcfg, tcfg = _configs("vit_test")
     jstate, _ = _states(jcfg, tcfg)
     ours = tcls.init_cls_train_state(tcfg, seed=3).model
+    assert timport.classifier_name(ours["backbone"]) == "head"
     x = _images(4)
     timport.save_cls_checkpoint(str(tmp_path / "ours.pth"), ours, epoch=2, best_acc=50.0)
     params, bn = jimport.load_cls_checkpoint(str(tmp_path / "ours.pth"), "vit_test")
@@ -366,9 +371,18 @@ def test_learning_script_knn_before_is_the_jax_scripts(monkeypatch, capsys):
     assert result["ok"] is False and result["endpoint_knn"] == []
 
 
-def test_learning_script_refuses_the_convnets(monkeypatch, capsys):
-    """The script no longer refuses the convnets: ``--arch resnet_test``
-    runs the JAX script's convnet recipe (LARS, BN in the head, base lr
+def test_learning_script_refuses_the_convnets():
+    """The script refuses a convnet it has no recipe for: ``--arch`` takes
+    the JAX script's choices, which hold resnet_test and resnet50 but not
+    wide_resnet50_2 (argparse exits 2)."""
+    script = _learning_script()
+    with pytest.raises(SystemExit) as exit_:
+        script.main(["--arch", "wide_resnet50_2", "--device", "cpu"])
+    assert exit_.value.code == 2
+
+
+def test_learning_script_runs_the_convnet_recipe(monkeypatch, capsys):
+    """``--arch resnet_test`` runs the JAX script's convnet recipe (LARS, BN in the head, base lr
     0.3 * batch / 256, weight decay 1e-6). With ``--steps 0`` it reports
     the k-NN before pretraining and, with no endpoint, exits 1."""
     script = _learning_script()

@@ -161,18 +161,40 @@ def _without_counts(sd):
     return {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
 
 
+def _assert_changes_close(ours, ref, init, what):
+    """Each leaf's change from the shared ``init``, ours against JAX's,
+    within 1e-2 of JAX's largest entry of that change, plus f32 rounding (4
+    ulp of the leaf's largest value, and 1e-8: the two head biases that feed
+    a batch-statistics BatchNorm have no gradient and move by rounding
+    alone, ~1e-9). The parameters' 2e-3 is far above what LARS moves a conv
+    or linear weight in two updates (~5e-4 in the student, ~2e-6 in the
+    teacher); this holds those moves to ~1e-3 (student) and ~3e-1 of the
+    bound (teacher)."""
+    eps = float(np.finfo(np.float32).eps)
+    for k in sorted(ref):
+        r = np.asarray(ref[k], np.float32)
+        d_ref = r - init[k]
+        bound = 1e-2 * np.abs(d_ref).max() + 4 * eps * np.abs(r).max() + 1e-8
+        np.testing.assert_allclose(n(ours[k]) - init[k], d_ref, atol=bound, rtol=0,
+                                   err_msg=f"{what}{k}: change from init")
+
+
 def test_three_resnet_lars_bn_head_steps_match_jax():
     """3 steps of ``dino_train_step`` at resnet_test with LARS and BN in the
     head, from the JAX package's init, across the last-layer freeze of
     epoch 0 and its end: the loss at every step; after, the student and the
     teacher (parameters and running statistics: the teacher's BatchNorm runs
     in train mode and is never EMA'd, the student's moves a bucket at a time,
-    globals first, then 16 px, then 24 px) and the centre.
+    globals first, then 16 px, then 24 px), each leaf's change from the init
+    too, and the centre.
     ``num_batches_tracked`` rises by one a bucket a step in the student and
     once a step in the teacher."""
     jcfg, tcfg = _dino_configs()
     jstate, tstate = _dino_states(jcfg, tcfg)
     assert set(tstate.opt_state) == {"mu"}
+    init = {which: {k: n(v).copy()
+                    for k, v in _without_counts(getattr(tstate, which).state_dict()).items()}
+            for which in ("student", "teacher")}
     lr = jsched.cosine_scheduler(0.3, 1e-6, EPOCHS, NITER, warmup_epochs=1)
     wd = jsched.cosine_scheduler(1e-6, 1e-6, EPOCHS, NITER)
     mom = jsched.cosine_scheduler(0.996, 1.0, EPOCHS, NITER)
@@ -193,15 +215,14 @@ def test_three_resnet_lars_bn_head_steps_match_jax():
         ours = getattr(tstate, which).state_dict()
         ref = _dino_sd(getattr(jstate, which), getattr(jstate, f"{which}_state"))
         assert_state_dicts_close(_without_counts(ours), ref, 2e-3, f"{which} ")
+        _assert_changes_close(ours, ref, init[which], f"{which} ")
         buckets = 1 + len(set(LOCAL_SIZES)) if which == "student" else 1
         assert {int(v) for k, v in ours.items() if k.endswith("num_batches_tracked")} == {
             steps * buckets}
     np.testing.assert_allclose(n(tstate.center), np.asarray(jstate.center), atol=2e-3)
     # the running statistics moved, and the teacher's are its own
-    init = ttr.init_dino_train_state(tcfg, seed=0)
-    load_jax_params(init, jax.device_get(jtr.init_dino_train_state(jax.random.PRNGKey(0), jcfg)))
     key = "backbone.layer3.0.bn2.running_mean"
-    assert not torch.equal(tstate.student.state_dict()[key], init.student.state_dict()[key])
+    assert not np.array_equal(n(tstate.student.state_dict()[key]), init["student"][key])
     assert not torch.equal(tstate.teacher.state_dict()[key], tstate.student.state_dict()[key])
 
 
@@ -326,7 +347,8 @@ def test_three_resnet_cls_steps_match_jax(freeze):
 
 
 def test_a_resnet_classifier_pth_round_trips_through_the_reference_layout(tmp_path):
-    """``save_cls_checkpoint`` writes a ResNet's classifier at torchvision's
+    """``save_cls_checkpoint`` writes a ResNet's classifier where
+    ``classifier_name`` puts it, at torchvision's
     ``fc.weight`` / ``fc.bias`` with the running statistics, the JAX
     package's reader (``resnet_params_from_torch``, what its
     ``load_cls_checkpoint`` calls) finds the same numbers, and the port
@@ -335,6 +357,7 @@ def test_a_resnet_classifier_pth_round_trips_through_the_reference_layout(tmp_pa
 
     cfg = tcls.ClsConfig(arch="resnet_test", num_classes=5, compute_dtype="float32")
     model = tcls.init_cls_train_state(cfg, seed=3).model
+    assert timport.classifier_name(model["backbone"]) == "fc"
     with torch.no_grad():  # non-trivial running statistics
         tcls.cls_logits(model, torch.rand(4, 32, 32, 3), cfg, train=True)
     path = str(tmp_path / "rn.pth")

@@ -108,20 +108,30 @@ def test_dino_head_matches_jax(norm_last_layer):
     assert head.last_layer.weight_v.shape == (64, 256)
 
 
+def _bn_head_tree():
+    jcfg = jhead.DINOHeadConfig(in_dim=32, out_dim=64, use_bn=True, compute_dtype=jnp.float32)
+    return jax.device_get(jhead.init_dino_head(jax.random.PRNGKey(1), jcfg))
+
+
 def test_head_refuses_bn():
-    """BN-in-head is ported (its parity tests are in tests/test_torch_resnet.py),
-    but the JAX package's exporter, and so the port's copy of it, refuse a
-    BN head's tree: ``ckpt/from_jax.head_state_dict`` maps it by hand, to
-    the reference's shifted indices."""
+    """The JAX package's head exporter, and so the port's copy of it,
+    refuse a BN head's tree. (BN-in-head itself is ported: its parity tests
+    are in tests/test_torch_resnet.py.)"""
     from dinomc_tpu.ckpt.torch_export import dino_head_state_dict as jexport_head
-    from dinomc_tpu_torch.ckpt.from_jax import head_state_dict
     from dinomc_tpu_torch.ckpt.state_dicts import dino_head_state_dict
 
-    jcfg = jhead.DINOHeadConfig(in_dim=32, out_dim=64, use_bn=True, compute_dtype=jnp.float32)
-    params = jax.device_get(jhead.init_dino_head(jax.random.PRNGKey(1), jcfg))
+    params = _bn_head_tree()
     for export in (jexport_head, dino_head_state_dict):
         with pytest.raises(AssertionError, match="BN-in-head"):
             export(params)
+
+
+def test_bn_head_tree_maps_to_the_reference_names():
+    """``ckpt/from_jax.head_state_dict`` maps a BN head's tree by hand, to
+    the port's head's names (the reference's shifted indices)."""
+    from dinomc_tpu_torch.ckpt.from_jax import head_state_dict
+
+    params = _bn_head_tree()
     head = thead.DINOHead(thead.DINOHeadConfig(in_dim=32, out_dim=64, use_bn=True))
     assert set(head_state_dict(params)) == set(head.state_dict())
 

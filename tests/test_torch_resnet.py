@@ -26,15 +26,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.nn as nn
-import torch.nn.functional as F
 
 from dinomc_tpu.ckpt import torch_export as jexport
 from dinomc_tpu.models import dino_head as jhead
 from dinomc_tpu.models import resnet as jrn
 from dinomc_tpu_torch.ckpt import state_dicts as tsd
 from dinomc_tpu_torch.ckpt.from_jax import head_state_dict, load_jax_params
-from dinomc_tpu_torch.ckpt.torch_import import load_backbone, load_dino_head
+from dinomc_tpu_torch.ckpt.torch_import import load_backbone
 from dinomc_tpu_torch.models import dino_head as thead
 from dinomc_tpu_torch.models import resnet as trn
 from dinomc_tpu_torch.models.encoders import EncoderConfig
@@ -170,18 +168,6 @@ def test_a_torchvision_pth_loads_with_its_running_statistics(tmp_path):
     np.testing.assert_allclose(n(trn.resnet_forward(model, t(x))), np.asarray(ref), atol=1e-4)
 
 
-def test_classifier_logits_match_jax():
-    """``num_classes > 0``: the pooled embedding through torchvision's
-    ``fc`` (weight (C, 2048)), JAX's (2048, C) kernel transposed."""
-    cfg = jrn.resnet_test(compute_dtype=jnp.float32, num_classes=5)
-    params, state = jax.device_get(jrn.init_resnet(jax.random.PRNGKey(2), cfg))
-    model = trn.ResNet(trn.resnet_test(compute_dtype=torch.float32, num_classes=5))
-    load_jax_params(model, (params, state))
-    x = np.random.default_rng(2).standard_normal((2, 32, 32, 3)).astype(np.float32)
-    ref, _ = _forward(params, state, jnp.asarray(x), cfg, False)
-    np.testing.assert_allclose(n(trn.resnet_forward(model, t(x))), np.asarray(ref), atol=1e-5)
-
-
 # --- BN-in-head --------------------------------------------------------------
 
 def _bn_heads(seed=1):
@@ -232,31 +218,6 @@ def test_bn_head_forward_and_grads_match_jax():
                                    rtol=0, err_msg=k)
     np.testing.assert_allclose(n(xt.grad), np.asarray(gx),
                                atol=1e-5 * float(np.abs(np.asarray(gx)).max()))
-
-
-def test_reference_bn_head_pth_loads_without_its_running_statistics():
-    """A reference ``DINOHead(use_bn=True)`` (Linear, BatchNorm1d, GELU,
-    ...; weight-normed last layer) carries ``mlp.1.running_mean`` and the
-    like: ``load_dino_head`` drops them, and in train mode (batch
-    statistics, as the reference trains) its logits are the port's."""
-    torch.manual_seed(0)
-    mlp = nn.Sequential(nn.Linear(32, 48), nn.BatchNorm1d(48), nn.GELU(),
-                        nn.Linear(48, 48), nn.BatchNorm1d(48), nn.GELU(), nn.Linear(48, 16))
-    last = nn.utils.weight_norm(nn.Linear(16, 64, bias=False))
-    for m in mlp:
-        if isinstance(m, nn.BatchNorm1d):
-            nn.init.uniform_(m.weight, 0.5, 1.5)
-            nn.init.normal_(m.bias, std=0.1)
-    sd = {**{f"mlp.{k}": v for k, v in mlp.state_dict().items()},
-          **{f"last_layer.{k}": v for k, v in last.state_dict().items()}}
-    assert "mlp.1.running_mean" in sd and "mlp.4.num_batches_tracked" in sd
-    head = thead.DINOHead(thead.DINOHeadConfig(in_dim=32, out_dim=64, hidden_dim=48,
-                                               bottleneck_dim=16, use_bn=True,
-                                               compute_dtype=torch.float32))
-    load_dino_head(head, sd)
-    x = torch.randn(12, 32)
-    ref = last(F.normalize(mlp.train()(x), dim=-1))
-    np.testing.assert_allclose(n(thead.dino_head_forward(head, x)), n(ref), atol=1e-5)
 
 
 # --- on the card -------------------------------------------------------------
