@@ -88,10 +88,33 @@ script exits non-zero:
    then ``cli.eurosat --arch resnet50`` in its four modes on
    ``--data_path synthetic``, then 3 ResNet-50 ``cls_train_step``s at 224 px,
    B = 32, and 3 with the backbone frozen (its parameters bit-identical, its
-   running statistics moved), launching no kernel of the table.
+   running statistics moved), launching no kernel of the table;
+14. full-resolution segmentation inference and OSCD change detection: a
+   3840 x 2160 frame made on the card (weights of ViT-S/8 UPerNet, 512
+   channels, pool scales 1/2/3/6, 8 UAVid classes, from a seed) through
+   ``eval.tiled_inference.tiled_predict`` at 224 px tiles (2 x 2 and 3 x 3,
+   K1 at B = 4 and 9, phase 2 holding K1 against its plain version there)
+   and 512 px tiles (2 x 2, K4 at B = 4, phase 5's first shape): K1, or K4,
+   launched exactly once a ViT layer a call and no backward kernel, a finite
+   canvas, each frame's CUDA-event ms and peak memory; ``evaluate_tiled``'s
+   mIoU equal to the mIoU of the confusion matrix of the argmax of the same
+   logits; the entry points ``cli.evaluate_stitched`` on a tree of two 3840
+   x 2160 PNG pairs with ``--export_logits_dir`` (``stitch_from_files``
+   rebuilds each frame's canvas bit for bit) and ``cli.predict`` with
+   ``--grid 2 2`` and a ``train_seg`` checkpoint directory written in the
+   phase (one 224 px step) as ``--ckpt``; then ``cli.oscd`` on change pairs
+   from ``utils/synthetic.make_change_pair`` (two train cities and one val
+   city of the official split, 384 px, so one step of 32 96 px tiles an
+   epoch), ResNet-50 with the encoder frozen for 2 epochs (its parameters
+   and running statistics bit-identical, the decoder moved, finite F1,
+   panels written, the warm step's ms), a rerun that resumes from the best
+   checkpoint, and 2 steps with the encoder trained (every encoder
+   parameter moved by the optimizer, the running statistics moved, each
+   BatchNorm's ``num_batches_tracked`` 2 a step); OSCD launches no kernel
+   of the table.
 
-Then one JSON line with each kernel's launches, error, times, bound and
-library time, and as the last line ``{"ok": true, "device": {...}}``. With
+Then one JSON line with each kernel's launches (K1's and K4's with phase
+14's), error, times, bound and library time, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device it exits with 1 and prints no result.
 
 Every time in that line is device time: CUDA events around 10 calls
@@ -161,6 +184,9 @@ ATTN_SHAPES = [  # (what, B, N, heads, head_dim, boundary)
     ("EuroSAT feature batch", 64, 785, 6, 64, 0),
     ("EuroSAT val remainder", 8, 785, 6, 64, 0),
     ("EuroSAT CLI 64 px", 32, 65, 6, 64, 0),
+    # phase 14: the tiles of a 3840 x 2160 frame at 224 px, 2 x 2 and 3 x 3
+    ("4K tiles 2 x 2 at 224 px", 4, 785, 6, 64, 0),
+    ("4K tiles 3 x 3 at 224 px", 9, 785, 6, 64, 0),
 ]
 TRAIN_ARGS = [
     "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
@@ -168,6 +194,7 @@ TRAIN_ARGS = [
     "--device", "cuda", "--print_freq", "1", "--num_workers", "4",
 ]
 LONG_SHAPES = [  # (what, B, N, heads, head_dim); the first is timed
+    # the seg fine-tune's batch, and phase 14's 2 x 2 tiles at 512 px
     ("ViT-S/8 at 512 px", 4, 4097, 6, 64),
     ("ViT-S/16 at 512 px", 4, 1025, 6, 64),
     ("ViT-S/8 at 600 px", 2, 5626, 6, 64),
@@ -241,6 +268,21 @@ RESNET_TRAIN_ARGS = [
 ]
 WRN_STEPS = 2
 RESNET_CLS_STEPS = 3
+# phase 14: a 3840 x 2160 UAVid-sized frame through ViT-S/8 UPerNet (512
+# channels, pool scales 1/2/3/6, 8 classes), tiled as (model size, grid):
+# 224 px tiles (K1 at B = 4 and 9, 785 tokens) and 512 px tiles (K4 at B = 4,
+# 4097 tokens); each path timed over TILED_REPEATS calls after a warm one
+FRAME_H, FRAME_W = 2160, 3840
+TILED_RUNS = [(224, (2, 2)), (224, (3, 3)), (512, (2, 2))]
+TILED_REPEATS = 3
+STITCHED_FRAMES = 2
+# OSCD: ResNet-50, 96 px tiles, batch 32; two train cities and one val city
+# of 384 x 384 change pairs (16 tiles each), so an epoch is one step of 32
+OSCD_SIDE, OSCD_TILE, OSCD_B = 384, 96, 32
+OSCD_ARGS = [
+    "--device", "cuda", "--backbone", "resnet50", "--batch_size", str(OSCD_B), "--epochs", "2",
+    "--max_steps", "2", "--print_freq", "1", "--panel_samples", "4",
+]
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -1327,6 +1369,250 @@ def phase_convnets(torch, smi):
     return total
 
 
+def _seg_frame(torch, seed):
+    """A normalized 3840 x 2160 frame and its class mask, made on the card."""
+    from dinomc_tpu_torch.data.seg_datasets import UAVID
+    from dinomc_tpu_torch.ops.augment import normalize
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.rand(FRAME_H, FRAME_W, 3, generator=gen, device="cuda")
+    mask = torch.randint(0, UAVID.num_classes, (FRAME_H, FRAME_W), generator=gen, device="cuda")
+    return normalize(image, UAVID.mean, UAVID.std), mask
+
+
+def _write_frames(root, n, seed):
+    """``n`` 3840 x 2160 RGB PNGs and palette masks under root/{images,masks}."""
+    import numpy as np
+    from PIL import Image
+
+    from dinomc_tpu_torch.data.seg_datasets import UAVID
+
+    rng = np.random.RandomState(seed)
+    palette = np.asarray(UAVID.palette, np.uint8)
+    for sub in ("images", "masks"):
+        os.makedirs(f"{root}/{sub}")
+    for i in range(n):
+        pixels = rng.randint(0, 256, (FRAME_H, FRAME_W, 3), dtype=np.uint8)
+        Image.fromarray(pixels).save(f"{root}/images/frame_{i}.png", compress_level=1)
+        mask = palette[rng.randint(0, UAVID.num_classes, (FRAME_H, FRAME_W))]
+        Image.fromarray(mask).save(f"{root}/masks/frame_{i}.png", compress_level=1)
+
+
+def phase_full_res(torch, smi):
+    """Phase 14, part one: tiled full-resolution segmentation inference.
+    Returns the launches of its main paths, summed by kernel."""
+    import numpy as np
+
+    from dinomc_tpu_torch.cli import evaluate_stitched, predict
+    from dinomc_tpu_torch.cli.train_seg import get_args_parser as seg_parser, train_seg
+    from dinomc_tpu_torch.data.seg_datasets import UAVID
+    from dinomc_tpu_torch.eval.metrics import confusion_matrix
+    from dinomc_tpu_torch.eval.tiled_inference import (
+        evaluate_tiled, stitch_from_files, tiled_predict,
+    )
+    from dinomc_tpu_torch.models.upernet import UPerNetConfig
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state, seg_predict
+
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    C = UAVID.num_classes
+    model = init_seg_train_state(SegConfig(model=UPerNetConfig(num_classes=C)), 0, "cuda").model
+    depth = len(model.backbone.vit.blocks)
+    x, mask = _seg_frame(torch, 14)
+
+    def predict_fn(batch):
+        return seg_predict(model, batch)
+
+    for size, grid in TILED_RUNS:
+        tag = f"tiled {size} px {grid[0]} x {grid[1]}"
+        _build.LAUNCHES.clear()
+        canvas = tiled_predict(predict_fn, x, grid, size)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        kernel = "attention_fwd" if size == 224 else "long_attention_fwd"
+        _check_launches(tag, launches, {kernel: depth})
+        add(launches)
+        if canvas.shape != (FRAME_H, FRAME_W, C) or not bool(canvas.isfinite().all()):
+            raise AssertionError(f"{tag}: canvas {tuple(canvas.shape)}, finite "
+                                 f"{bool(canvas.isfinite().all())}")
+        del canvas
+        ms = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TILED_REPEATS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            tiled_predict(predict_fn, x, grid, size)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        print(f"[{tag}] a 3840 x 2160 frame: ms (CUDA events, host-issued) "
+              f"{[round(v, 3) for v in ms]}, median {statistics.median(ms):.3f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{smi}]")
+
+    # evaluate_tiled's mIoU against the mIoU of the confusion matrix of the
+    # argmax, on the same logits: the model's output is recorded, and the
+    # canvas rebuilt from it by the same resize and stitch
+    outputs = []
+
+    def recording_fn(batch):
+        outputs.append(predict_fn(batch))
+        return outputs[-1]
+
+    scores = evaluate_tiled(recording_fn, [(x, mask)], C, (2, 2), 224)
+    canvas = tiled_predict(lambda batch: outputs[0], x, (2, 2), 224)
+    cm = confusion_matrix(canvas.argmax(-1), mask, C).float()
+    tp = cm.diagonal()
+    inter, union = tp.cpu().numpy(), (cm.sum(1) + cm.sum(0) - tp).cpu().numpy()
+    miou = float((inter / np.maximum(union, 1e-10))[union > 0].mean())
+    print(f"[evaluate_tiled] mIoU {scores['miou']:.6f}, from the confusion matrix {miou:.6f}")
+    if scores["miou"] != miou or scores["n_images"] != 1:
+        raise AssertionError(f"evaluate_tiled's mIoU {scores['miou']} is not the confusion "
+                             f"matrix's {miou}")
+    del canvas, outputs, x, mask
+
+    with tempfile.TemporaryDirectory() as root:
+        _write_frames(root, STITCHED_FRAMES, 14)
+        # a train_seg checkpoint directory: one 224 px step from seed 0
+        seg_out = f"{root}/seg"
+        seg_args = seg_parser().parse_args(SEG_ARGS + [
+            "--image_size", "224", "--max_steps", "1", "--output_dir", seg_out])
+        trained = train_seg(seg_args).state.model.state_dict()
+
+        args = evaluate_stitched.get_args_parser().parse_args([
+            "--device", "cuda", "--data_root", root, "--grid", "2", "2",
+            "--export_logits_dir", f"{root}/logits"])
+        canvases = {}
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        cli_scores = evaluate_stitched.run(
+            args, on_frame=lambda stem, logits: canvases.update({stem: logits}))
+        cli_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        _check_launches("evaluate_stitched cli", launches,
+                        {"attention_fwd": STITCHED_FRAMES * depth})
+        add(launches)
+        print(f"[evaluate_stitched cli] {STITCHED_FRAMES} PNG frames of 3840 x 2160: mIoU "
+              f"{cli_scores['miou']:.4f}, {cli_s:.3f} s with decoding and export, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{smi}]")
+        for stem, logits in canvases.items():
+            rebuilt = stitch_from_files(f"{root}/logits", f"{root}/logits/patches_metadata.json",
+                                        (FRAME_H, FRAME_W), basename=stem, device="cuda")
+            if not torch.equal(rebuilt, logits):
+                raise AssertionError(f"the exported patches of {stem} do not rebuild its canvas")
+        print(f"[evaluate_stitched cli] the exported patches rebuild all {len(canvases)} "
+              "canvases bit for bit")
+
+        args = predict.get_args_parser().parse_args([
+            "--device", "cuda", "--image", f"{root}/images/frame_0.png", "--grid", "2", "2",
+            "--ckpt", f"{seg_out}/checkpoints", "--out", f"{root}/pred.png",
+            "--figure", f"{root}/figure.png"])
+        loaded = predict.load_seg_model(args, UAVID, torch.device("cuda")).state_dict()
+        if not all(torch.equal(loaded[k], trained[k]) for k in trained):
+            raise AssertionError("--ckpt did not restore the train_seg checkpoint")
+        del loaded
+        _build.LAUNCHES.clear()
+        pred = predict.run(args)
+        launches = dict(_build.LAUNCHES)
+        _check_launches("predict cli", launches, {"attention_fwd": depth})
+        add(launches)
+        if pred.shape != (FRAME_H, FRAME_W) or not os.path.getsize(f"{root}/pred.png"):
+            raise AssertionError(f"predict CLI: mask {pred.shape}")
+        print(f"[predict cli] --grid 2 2 with a train_seg checkpoint: mask {pred.shape}, classes "
+              f"{np.bincount(pred.ravel(), minlength=C).tolist()}")
+    return total
+
+
+def _oscd_tree(root):
+    """Three cities of change pairs from ``make_change_pair``: two train
+    cities and one val city of the official split, 384 px each."""
+    import numpy as np
+    from PIL import Image
+
+    from dinomc_tpu_torch.utils.synthetic import make_change_pair
+
+    for i, city in enumerate(("beirut", "paris", "brasilia")):
+        os.makedirs(f"{root}/{city}")
+        img1, img2, change = make_change_pair(OSCD_SIDE, np.random.RandomState(14 + i))
+        for name, arr in (("t1", img1), ("t2", img2), ("cm", change)):
+            Image.fromarray((arr * 255 + 0.5).astype(np.uint8)).save(f"{root}/{city}/{name}.png")
+
+
+def phase_oscd(torch, smi):
+    """Phase 14, part two: OSCD change detection through ``cli.oscd``."""
+    from dinomc_tpu_torch.cli import oscd
+    from dinomc_tpu_torch.models.siamese import SiameseConfig
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.oscd_trainer import OSCDConfig, init_oscd_train_state
+
+    with tempfile.TemporaryDirectory() as root:
+        _oscd_tree(root)
+        frozen = oscd.get_args_parser().parse_args(
+            OSCD_ARGS + ["--data_path", root, "--output_dir", f"{root}/frozen"])
+        _build.LAUNCHES.clear()
+        first = oscd.run(frozen)
+        _check_launches("oscd cli frozen", dict(_build.LAUNCHES), {})
+        init = init_oscd_train_state(OSCDConfig(model=SiameseConfig()), frozen.seed,
+                                     "cuda").model.state_dict()
+        now = first.state.model.state_dict()
+        enc = [k for k in now if k.startswith("encoder.")]
+        params = [k for k, _ in first.state.model.named_parameters()]
+        dec = [k for k in params if not k.startswith("encoder.")]
+        same = all(torch.equal(now[k], init[k]) for k in enc)
+        moved = max((now[k] - init[k]).abs().max().item() for k in dec)
+        panels = sorted(os.listdir(f"{root}/frozen/panels/epoch_000"))
+        warm = first.step_ms[1:]
+        print(f"[oscd cli frozen] losses {first.losses}, epochs {first.epochs}; encoder "
+              f"parameters and running statistics bit-identical: {same}; decoder max|change| "
+              f"{moved:.3e}; panels {panels}")
+        print(f"[oscd cli frozen] step ms (CUDA events, upload + step) "
+              f"{[round(v, 3) for v in first.step_ms]}, warm {statistics.median(warm):.3f} ms "
+              f"at B = {OSCD_B}, {OSCD_TILE} px  [{smi}]")
+        if not (same and moved > 0 and len(first.losses) == 2 and len(panels) == 4
+                and all(math.isfinite(r["f1"]) for r in first.epochs)):
+            raise AssertionError("OSCD frozen-encoder run: see the lines above")
+
+        # a rerun resumes from the one checkpoint kept, the best epoch's (the
+        # later of equal F1s), and trains on from there up to --max_steps
+        again = oscd.run(frozen)
+        best = max(first.epochs, key=lambda r: (r["f1"], r["epoch"]))
+        print(f"[oscd cli resume] start epoch {again.start_epoch}, step {again.state.step} after "
+              f"{len(again.losses)} more, best F1 {again.best_f1:.4f} (the first run's best: "
+              f"epoch {best['epoch']}, step {best['step']}, F1 {first.best_f1:.4f})")
+        if (again.start_epoch != best["epoch"] + 1 or again.best_f1 < first.best_f1
+                or again.state.step != best["step"] + len(again.losses)):
+            raise AssertionError("the resumed run did not start from the best checkpoint")
+
+        trained = oscd.get_args_parser().parse_args(
+            OSCD_ARGS + ["--data_path", root, "--output_dir", f"{root}/trained",
+                         "--freeze_encoder", "false"])
+        _build.LAUNCHES.clear()
+        out = oscd.run(trained)
+        _check_launches("oscd cli trained", dict(_build.LAUNCHES), {})
+        now = out.state.model.state_dict()
+        # the optimizer's move (parameters) apart from the forward's
+        # (running statistics, which train mode moves whatever the optimizer does)
+        enc_params = [k for k in params if k.startswith("encoder.")]
+        still = [k for k in enc_params if torch.equal(now[k], init[k])]
+        moved = max((now[k] - init[k]).abs().max().item() for k in enc_params)
+        stats = [k for k in enc if "running_" in k]
+        stats_moved = max((now[k] - init[k]).abs().max().item() for k in stats)
+        tracked = {int(now[k]) for k in enc if k.endswith("num_batches_tracked")}
+        print(f"[oscd cli trained] losses {out.losses}; encoder parameters max|change| "
+              f"{moved:.3e}, {len(enc_params) - len(still)} of {len(enc_params)} moved; "
+              f"running statistics max|change| {stats_moved:.3e}; num_batches_tracked "
+              f"{sorted(tracked)} (implied {2 * len(out.losses)}); step ms "
+              f"{[round(v, 3) for v in out.step_ms]}  [{smi}]")
+        if not (not still and stats_moved > 0 and tracked == {2 * len(out.losses)}
+                and len(out.losses) == 2):
+            raise AssertionError("OSCD trained-encoder run: see the line above")
+
+
 def main() -> int:
     import torch
 
@@ -1346,6 +1632,8 @@ def main() -> int:
     mlp_launches = phase_fused_mlp_train(torch, smi)
     cls_launches = phase_cls(torch, smi)
     convnet_launches = phase_convnets(torch, smi)
+    full_res_launches = phase_full_res(torch, smi)
+    phase_oscd(torch, smi)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -1357,8 +1645,8 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
-    def with_cls(counts, name):  # a main path's launches, phase 12's counted in
-        return counts.get(name, 0) + cls_launches.get(name, 0)
+    def with_cls(counts, name):  # a main path's launches, phases 12 and 14's counted in
+        return counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
 
     kernels = [
         entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
@@ -1375,8 +1663,9 @@ def main() -> int:
                             ("long_attention_dkv", 187, "dkv")):
         kernels.append(entry(
             name, "attention_long.cu", f"dinomc_tpu/ops/pallas/attention_long.py:{line}",
-            seg_launches.get(name, 0), long_err[key], long_t[f"{key}_ms"],
-            long_t[f"{key}_plain_ms"], long_t[f"{key}_bound"], long_t[f"{key}_library_ms"]))
+            seg_launches.get(name, 0) + full_res_launches.get(name, 0), long_err[key],
+            long_t[f"{key}_ms"], long_t[f"{key}_plain_ms"], long_t[f"{key}_bound"],
+            long_t[f"{key}_library_ms"]))
     stage1 = win_t[0]  # the timed shape: stage 1 of the 224 px globals
     for name, line, key, err in (("window_attention_fwd", 281, "fwd", win_err["fwd"]),
                                  ("window_attention_bwd", 319, "bwd", win_err["grad"])):

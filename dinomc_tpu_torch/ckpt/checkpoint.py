@@ -6,14 +6,16 @@ whole train state goes through ``torch.save`` into
 teacher, AdamW moments and counts, centre, step and DropPath generator; for
 a ``SegTrainState`` the UPerNet (parameters and BatchNorm statistics), AdamW
 state, step and dropout generator; for a ``ClsTrainState`` the backbone and
-classifier, optimizer state, step and generator. The newest ``max_to_keep``
-files are kept, plus every multiple of ``keep_period``; with
-``best_mode='max'`` the ``max_to_keep`` files of highest metric are kept
-instead (the seg trainer's best-mIoU and the EuroSAT CLI's best-accuracy
-checkpoint). A rerun with the same directory resumes from the
-newest file (the reference's ``restart_from_checkpoint``,
-``utils/utils.py:165-197``). Files are written to a temporary name and
-renamed, so a crash never leaves a half-written checkpoint as the newest.
+classifier, optimizer state, step and generator; for an ``OSCDTrainState``
+the siamese model (its encoder's BatchNorm statistics included), Adam state,
+step and generator. The newest ``max_to_keep`` files are kept, plus every
+multiple of ``keep_period``; with ``best_mode='max'`` the ``max_to_keep``
+files of highest metric are kept instead (the seg trainer's best-mIoU, the
+EuroSAT CLI's best-accuracy and the OSCD CLI's best-F1 checkpoint). A rerun
+with the same directory resumes from the newest file (the reference's
+``restart_from_checkpoint``, ``utils/utils.py:165-197``). Files are written
+to a temporary name and renamed, so a crash never leaves a half-written
+checkpoint as the newest.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ import torch
 
 from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
+from dinomc_tpu_torch.train.oscd_trainer import OSCDTrainState
 from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pth$")
-TrainState = Union[DinoTrainState, SegTrainState, ClsTrainState]
+TrainState = Union[DinoTrainState, SegTrainState, ClsTrainState, OSCDTrainState]
+_ONE_MODEL = (SegTrainState, ClsTrainState, OSCDTrainState)
 
 
 def _load_opt_state(opt_state: dict, saved: dict) -> None:
@@ -45,7 +49,7 @@ def _load_opt_state(opt_state: dict, saved: dict) -> None:
 
 
 def state_to_dict(state: TrainState) -> dict:
-    if isinstance(state, (SegTrainState, ClsTrainState)):
+    if isinstance(state, _ONE_MODEL):
         return {
             "step": int(state.step),
             "model": state.model.state_dict(),
@@ -68,7 +72,7 @@ def load_state_dict_into(state: TrainState, saved: dict) -> None:
     _load_opt_state(state.opt_state, saved["opt_state"])
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
-    if isinstance(state, (SegTrainState, ClsTrainState)):
+    if isinstance(state, _ONE_MODEL):
         state.model.load_state_dict(saved["model"], strict=True)
         return
     state.student.load_state_dict(saved["student"], strict=True)

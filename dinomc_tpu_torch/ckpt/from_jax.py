@@ -10,7 +10,9 @@ running statistics included. A ViT loads the same tree whatever its
 ``mlp_impl``: the dense and the fused MLP read the same ``fc1``/``fc2``
 tensors. A DINO head with BatchNorm has no exporter in the JAX package
 (``torch_export.py:85-89`` refuses it), so it is mapped here, to the
-reference's shifted Sequential indices.
+reference's shifted Sequential indices; so is the OSCD ``Siamese`` (its
+encoder through ``resnet_state_dict``, its decoder convolutions HWIO ->
+OIHW under the JAX tree's names), which the JAX package never exports.
 """
 
 from __future__ import annotations
@@ -30,11 +32,13 @@ from dinomc_tpu_torch.ckpt.state_dicts import (
 )
 from dinomc_tpu_torch.models.dino_head import DINOHead
 from dinomc_tpu_torch.models.resnet import ResNet
+from dinomc_tpu_torch.models.siamese import Siamese
 from dinomc_tpu_torch.models.swin import SwinTransformer
 from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
 from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
+from dinomc_tpu_torch.train.oscd_trainer import OSCDTrainState
 from dinomc_tpu_torch.train.seg_trainer import SegTrainState
 
 
@@ -63,19 +67,35 @@ def head_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.nd
     return sd
 
 
+def siamese_state_dict(params: Dict[str, Any], bn_state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A JAX ``init_siamese`` pair -> the port's ``Siamese`` state dict:
+    ``encoder.*`` in torchvision's names, ``lateral.{i}``, ``smooth`` and
+    ``classifier`` as (out, in, k, k) weights and biases."""
+    sd = resnet_state_dict(params["encoder"], bn_state["encoder"], "encoder.")
+    convs = {f"lateral.{i}": p for i, p in enumerate(params["lateral"])}
+    convs.update(smooth=params["smooth"], classifier=params["classifier"])
+    for name, p in convs.items():
+        sd[name + ".weight"] = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1).copy()
+        sd[name + ".bias"] = np.asarray(p["bias"], np.float32)
+    return sd
+
+
 def _resnet(pair, prefix: str = "") -> Dict[str, np.ndarray]:
     return resnet_state_dict(*pair, prefix)
 
 
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
-    a ViT or Swin tree, a ResNet's or a UPerNet's ``(params, bn_state)``
-    pair, a DINO-head tree, a ``{'backbone', 'head'}`` tree, or a
-    classifier's ``{'backbone', 'fc'}`` tree (a ResNet backbone as a pair)."""
+    a ViT or Swin tree, a ResNet's, a UPerNet's or a Siamese's
+    ``(params, bn_state)`` pair, a DINO-head tree, a ``{'backbone', 'head'}``
+    tree, or a classifier's ``{'backbone', 'fc'}`` tree (a ResNet backbone as
+    a pair)."""
     backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict,
                  ResNet: _resnet}
     if isinstance(module, UPerNet):
         return _tensors(upernet_state_dict(*params))
+    if isinstance(module, Siamese):
+        return _tensors(siamese_state_dict(*params))
     if type(module) in backbones:
         return _tensors(backbones[type(module)](params))
     if isinstance(module, DINOHead):
@@ -123,8 +143,9 @@ def load_jax_params(module_or_state, jax_params) -> None:
     JAX ``SegTrainState``: parameters, BatchNorm statistics and step are
     copied, the AdamW state starts from zero. For a ``ClsTrainState``, a JAX
     ``ClsTrainState``: backbone (with its BatchNorm statistics), classifier
-    and step are copied, the optimizer state starts from zero."""
-    if isinstance(module_or_state, SegTrainState):
+    and step are copied, the optimizer state starts from zero. For an
+    ``OSCDTrainState``, a JAX ``OSCDTrainState``: the same."""
+    if isinstance(module_or_state, (SegTrainState, OSCDTrainState)):
         st = module_or_state
         load_jax_params(st.model, (jax_params.params, jax_params.bn_state))
         st.step = int(np.asarray(jax_params.step))

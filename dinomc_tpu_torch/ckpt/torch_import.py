@@ -15,7 +15,12 @@ full-model ``state_dict`` with the classifier at ``head.weight`` /
 torchvision convnets: ``load_cls_checkpoint`` reads one into the port's
 ``{'backbone', 'fc'}`` module, whose ``fc.kernel`` is that weight
 transposed, and ``save_cls_checkpoint`` writes one, BatchNorm buffers
-included; ``classifier_name`` decides the name for both. A DINO-MC
+included; ``classifier_name`` decides the name for both. A reference
+segmentation checkpoint (``train_dino_mc_seg.py:190-197``: mmseg
+``UPerNetDinoMC`` names under ``model_state_dict``) loads into the port's
+``UPerNet``, which carries those names: ``read_upernet_state_dict`` reads
+the file once, ``upernet_widths`` takes the decoder widths it was trained
+with from that dict and ``load_upernet_checkpoint`` loads it. A DINO-MC
 checkpoint's head, with the running statistics of a BatchNorm-in-head that
 the port's head (as the JAX one) has no place for, is never read:
 ``load_backbone`` takes the backbone's tensors alone.
@@ -54,6 +59,38 @@ def load_backbone(module: nn.Module, path: str, checkpoint_key: Optional[str] = 
     if missing:
         raise KeyError(f"{path}: no tensor for {missing[:5]}{' ...' if len(missing) > 5 else ''}")
     module.load_state_dict({n: sd[n].float() for n in names}, strict=True)
+
+
+def read_upernet_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference seg checkpoint -> flat {mmseg name: CPU tensor}: the
+    ``model_state_dict`` or ``state_dict`` entry unwrapped, ``module.``
+    removed from the names (the JAX package's ``load_upernet_checkpoint``)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict):
+        for key in ("model_state_dict", "state_dict"):
+            if key in ckpt:
+                ckpt = ckpt[key]
+                break
+    return {k.replace("module.", ""): torch.as_tensor(v).detach().cpu() for k, v in ckpt.items()}
+
+
+def upernet_widths(sd: Dict[str, torch.Tensor]) -> Dict:
+    """The ``UPerNetConfig`` fields a reference seg checkpoint's state dict
+    (``read_upernet_state_dict``) fixes: the decoder's and the auxiliary
+    head's channels and whether it has the FPN neck (the JAX package takes
+    its whole tree from the file, so it runs whatever widths the file
+    holds)."""
+    return {"channels": sd["decode_head.conv_seg.weight"].shape[1],
+            "aux_channels": sd["auxiliary_head.conv_seg.weight"].shape[1],
+            "use_fpn_neck": any(k.startswith("neck.") for k in sd)}
+
+
+@torch.no_grad()
+def load_upernet_checkpoint(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Load a reference seg checkpoint's state dict
+    (``read_upernet_state_dict``) into the port's ``UPerNet`` with
+    ``strict=True``; no renaming, the port's names are mmseg's."""
+    model.load_state_dict(sd, strict=True)
 
 
 def classifier_name(backbone: nn.Module) -> str:

@@ -115,12 +115,21 @@ def rgb_to_class(mask_rgb: np.ndarray, spec: SegDatasetSpec) -> np.ndarray:
     return cls.reshape(mask_rgb.shape[:2])
 
 
+def class_to_rgb(mask: np.ndarray, spec: SegDatasetSpec) -> np.ndarray:
+    """(H, W) class indices -> (H, W, 3) uint8 palette colours (reference
+    ``class_to_rgb``)."""
+    palette = np.asarray(spec.palette, np.uint8)
+    return palette[np.clip(mask, 0, spec.num_classes - 1)]
+
+
 class SegSampleIndex:
     """(image, mask) pairs listed by shared stem from two directories: the
-    original and 'patched' layouts of all four datasets."""
+    original and 'patched' layouts of all four datasets. ``image_size=None``
+    loads every sample at its native resolution (the stitched evaluation's
+    full-resolution frames)."""
 
     def __init__(self, img_dir: str, mask_dir: str, spec: SegDatasetSpec,
-                 image_size: int = 224):
+                 image_size: Optional[int] = 224):
         self.spec = spec
         self.image_size = image_size
         self.img_dir, self.mask_dir = img_dir, mask_dir
@@ -148,17 +157,39 @@ class SegSampleIndex:
                 return p
         raise FileNotFoundError(stem)
 
+    @classmethod
+    def potsdam_pairs(cls, root: str, spec: SegDatasetSpec, split: str = "train",
+                      val_frac: float = 0.1, seed: int = 42,
+                      image_size: Optional[int] = 224) -> "SegSampleIndex":
+        """Potsdam layout: one directory of ``Image_*.tif`` / ``Label_*.tif``
+        pairs with a seeded 90/10 train/val split in memory (reference
+        ``potsdam_dataset.py:185-189``)."""
+        self = cls.__new__(cls)
+        self.spec = spec
+        self.image_size = image_size
+        self.img_dir = self.mask_dir = root
+        stems = sorted(p.stem for p in Path(root).iterdir() if p.stem.startswith("Image_"))
+        order = np.random.RandomState(seed).permutation(len(stems))
+        n_val = max(int(round(len(stems) * val_frac)), 1) if stems else 0
+        pick = order[n_val:] if split == "train" else order[:n_val]
+        self.stems = [stems[i] for i in sorted(pick)]
+        return self
+
     def __len__(self) -> int:
         return len(self.stems)
 
-    def load(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
-        """(image f32 [0, 1] (S, S, 3), mask int32 (S, S)); image bicubic,
-        mask nearest (``uavid_dataset.py:237-238``)."""
+    def load(self, i: int, size: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """(image f32 [0, 1] (S, S, 3), mask int32 (S, S)) at ``size``, else
+        at ``image_size``, else native; image bicubic, mask nearest
+        (``uavid_dataset.py:237-238``)."""
         from PIL import Image
 
-        stem, size = self.stems[i], self.image_size
-        img = Image.open(self._find_img(stem)).convert("RGB").resize((size, size), Image.BICUBIC)
-        mask_img = Image.open(self._find_mask(stem)).resize((size, size), Image.NEAREST)
+        stem, size = self.stems[i], size or self.image_size
+        img = Image.open(self._find_img(stem)).convert("RGB")
+        mask_img = Image.open(self._find_mask(stem))
+        if size is not None:
+            img = img.resize((size, size), Image.BICUBIC)
+            mask_img = mask_img.resize((size, size), Image.NEAREST)
         img_np = np.asarray(img, np.float32) / 255.0
         if self.spec.mask_is_rgb:
             mask_np = rgb_to_class(np.asarray(mask_img.convert("RGB")), self.spec)

@@ -4,8 +4,9 @@ Counterpart of ``dinomc_tpu/objectives/segmentation.py`` (reference
 ``utils/loss.py``): pixel cross-entropy with ``ignore_index`` and the
 ``DiceCrossEntropyLoss`` of the seg fine-tune (``utils/loss.py:175-199``),
 logits (B, H, W, C) and targets (B, H, W) integers as in the JAX package;
-and the classification step's ``multilabel_soft_margin_loss``. The OSCD and
-soft-IoU losses are not ported yet (ROADMAP.md queue 1 #16).
+OSCD's binary ``dice_bce_loss``; the soft-IoU losses ``miou_loss``,
+``mmiou_loss`` and ``liou_loss``; and the classification step's
+``multilabel_soft_margin_loss``. All in f32.
 """
 
 from __future__ import annotations
@@ -55,6 +56,63 @@ def dice_ce_loss(
     if ignore_index is not None:
         one_hot = one_hot * (target != ignore_index)[..., None]
     return ce + soft_dice_loss_per_class(probs, one_hot)
+
+
+def bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on raw logits, in the stable form
+    ``max(x, 0) - x * t + log1p(exp(-|x|))``, in f32."""
+    logits, target = logits.float(), target.float()
+    return (logits.clamp_min(0) - logits * target + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def dice_bce_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """OSCD's binary loss (``utils/loss.py:15-43``) on raw logits and {0, 1}
+    targets of one shape: (0.5 * BCEWithLogits + 0.5 * (1 - soft dice over
+    the whole batch)) * 2, the dice unsmoothed as in the reference."""
+    logits, target = logits.float(), target.float()
+    probs = torch.sigmoid(logits)
+    bce = bce_with_logits(logits, target)
+    dice = 2.0 * (probs * target).sum() / (target.sum() + probs.sum()).clamp_min(1e-12)
+    return (0.5 * bce + 0.5 * (1.0 - dice)) * 2.0
+
+
+def _soft_iou_per_class(probs: torch.Tensor, one_hot: torch.Tensor) -> torch.Tensor:
+    """(B, C) soft IoU of (B, H, W, C) inputs: inter / (a + b - ab), summed
+    over the pixels."""
+    B, C = probs.shape[0], probs.shape[-1]
+    inter = (probs * one_hot).reshape(B, -1, C).sum(dim=1)
+    union = (probs + one_hot - probs * one_hot).reshape(B, -1, C).sum(dim=1)
+    return inter / (union + 1e-8)
+
+
+def _one_hot(target: torch.Tensor, C: int) -> torch.Tensor:
+    """``jax.nn.one_hot``: an index outside [0, C) gives a zero row."""
+    return (target.long()[..., None] == torch.arange(C, device=target.device)).float()
+
+
+def miou_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """mIoULoss (``utils/loss.py:99-134``): minus the mean soft IoU of the
+    softmax probabilities."""
+    C = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    return -_soft_iou_per_class(probs, _one_hot(target, C)).mean()
+
+
+def mmiou_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Minimax mmIoULoss (``utils/loss.py:136-172``): minus the least and the
+    mean soft IoU. The reference has the softmax commented out, so the raw
+    inputs are used, as in the JAX package."""
+    iou = _soft_iou_per_class(logits.float(), _one_hot(target, logits.shape[-1]))
+    return -iou.min() - iou.mean()
+
+
+def liou_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``liou_loss`` (``utils/loss.py:46-84``): -log of the least soft IoU
+    over the (batch, class) matrix of softmax probabilities. The reference
+    trainers define it and never call it."""
+    C = logits.shape[-1]
+    probs = torch.softmax(logits.float(), dim=-1)
+    return -torch.log(_soft_iou_per_class(probs, _one_hot(target, C)).min())
 
 
 def multilabel_soft_margin_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

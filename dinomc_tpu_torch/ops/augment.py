@@ -17,8 +17,8 @@ transform (``data/seg_datasets.augment_batch``), with their draws apart
 ``eurosat_train_view`` on ``draw_eurosat_view``'s boxes and flips:
 ``resized_crop`` (scale (0.08, 1.0)), ``random_hflip`` and ``normalize``;
 it runs no photometric kernel, as in the JAX package. ``resize`` is
-``jax.image.resize`` (antialiased). ``multicrop_augment_tp`` (DINO-TP) is
-not ported yet (ROADMAP.md, queue 1 #10).
+``jax.image.resize`` (bilinear and bicubic antialiased, and nearest).
+``multicrop_augment_tp`` (DINO-TP) is not ported yet (ROADMAP.md, queue 1 #10).
 """
 
 from __future__ import annotations
@@ -189,19 +189,40 @@ def resized_crop(
     return random_resized_crop(planar, boxes, out_size, method).permute(0, 2, 3, 1)
 
 
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """Source rows of ``jax.image.resize(..., "nearest")`` along one axis:
+    floor((i + 0.5) * in / out), computed in f32 as JAX computes it
+    (``jax/_src/image/scale.py`` ``_resize_nearest``); not
+    ``F.interpolate``'s floor(i * in / out)."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out
+    return pos.floor().long()
+
+
 def resize(images: torch.Tensor, size: Tuple[int, int], method: str = "bilinear") -> torch.Tensor:
-    """``jax.image.resize`` of NHWC f32 images to ``size`` = (h, w): scale
-    out/in and no translation, antialiased when downsampling, not clipped."""
-    B, H, W, _ = images.shape
+    """``jax.image.resize`` of NHWC images to ``size`` = (h, w). Bilinear and
+    bicubic (Keys, a = -0.5): f32, scale out/in and no translation,
+    antialiased when downsampling, not clipped. Nearest: a gather of rows and
+    columns in the input's dtype. An axis whose size does not change is left
+    as it is, as JAX leaves it."""
+    _, H, W, _ = images.shape
     h, w = size
-    zero = torch.zeros(B, device=images.device)
+    if method == "nearest":
+        out = images
+        if H != h:
+            out = out[:, _nearest_index(H, h, images.device)]
+        if W != w:
+            out = out[:, :, _nearest_index(W, w, images.device)]
+        return out
+    one = torch.ones(1, device=images.device)
 
-    def weights(n_in, n_out):
-        return resize_weights(n_in, n_out, torch.full((B,), n_out / n_in, device=images.device),
-                              zero, method)
+    def weights(n_in, n_out):  # (1, 1, out, in): every sample and channel alike
+        return resize_weights(n_in, n_out, one * (n_out / n_in), one * 0.0, method)[:, None]
 
-    planar = images.float().permute(0, 3, 1, 2)
-    out = weights(H, h)[:, None] @ planar @ weights(W, w).transpose(1, 2)[:, None]
+    out = images.float().permute(0, 3, 1, 2)
+    if H != h:
+        out = weights(H, h) @ out
+    if W != w:
+        out = out @ weights(W, w).transpose(2, 3)
     return out.permute(0, 2, 3, 1)
 
 

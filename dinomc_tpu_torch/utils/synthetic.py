@@ -1,13 +1,15 @@
 """Synthetic texture worlds for dataset-free learning checks.
 
-Counterpart of ``dinomc_tpu/utils/synthetic.py`` (the texture families and
-``make_texture_dataset``), copied so that the port imports nothing of the
+Counterpart of ``dinomc_tpu/utils/synthetic.py`` (the texture families,
+``make_texture_dataset``, and the Voronoi scenes ``make_change_pair`` and
+``make_seg_scene``), copied so that the port imports nothing of the
 JAX package; ``tests/test_torch_copies.py`` holds it to the original, array
 for array. Eight texture families (stripes / checker / dots / rings /
 starburst / blobs / speckle / crosshatch) whose identity survives the DINO
 augmentations while orientation, scale, phase, colour, brightness and noise
 vary per sample. Everything is numpy, drawn from ``np.random.RandomState``.
-Used by ``scripts/validate_learning_torch.py``.
+Used by ``scripts/validate_learning_torch.py``, the OSCD and tiled-inference
+tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -106,3 +108,73 @@ def _texture_mix(c, size, rng, lo, hi):
 
 
 TEXTURES = {"v1": texture, "v2": texture_v2, "v2m": texture_v2m}
+
+
+def make_change_pair(
+    size: int,
+    rng: np.random.RandomState,
+    num_classes: int = NUM_CLASSES,
+    n_seeds: int = 6,
+    n_change: int = 2,
+    family: str = "v1",
+    drift: str = "color",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A before / after scene pair with a known change mask (the OSCD
+    learning world). Both images share one Voronoi layout; ``n_change``
+    random cells take another texture class in the second, and every cell
+    drifts between the two acquisitions: with ``drift='color'`` an unchanged
+    cell keeps its texture's structure under a fresh colour, brightness and
+    noise; with ``drift='full'`` it is drawn anew (the class alone is the
+    change). Returns (img1, img2, change_mask): two (size, size, 3) f32
+    images and a (size, size) f32 mask in {0, 1}."""
+    gen = TEXTURES[family]
+    pts = rng.rand(n_seeds, 2) * size
+    cls1 = rng.randint(0, num_classes, n_seeds)
+    cls2 = cls1.copy()
+    changed = rng.choice(n_seeds, size=min(n_change, n_seeds), replace=False)
+    for s in changed:
+        cls2[s] = (cls1[s] + 1 + rng.randint(num_classes - 1)) % num_classes
+    yy, xx = np.mgrid[0:size, 0:size]
+    d2 = (yy[..., None] - pts[:, 0]) ** 2 + (xx[..., None] - pts[:, 1]) ** 2
+    cell = np.argmin(d2, axis=-1)
+    mask = np.isin(cell, changed).astype(np.float32)
+    img1 = np.zeros((size, size, 3), np.float32)
+    img2 = np.zeros((size, size, 3), np.float32)
+    for s in range(n_seeds):
+        sel = cell == s
+        if not sel.any():
+            continue
+        t1 = gen(int(cls1[s]), size, rng)
+        img1[sel] = colorize(t1, rng)[sel]
+        if s in changed or drift == "full":
+            t2 = gen(int(cls2[s]), size, rng)
+        else:
+            t2 = t1  # same structure, fresh colorize below
+        img2[sel] = colorize(t2, rng)[sel]
+    return img1, img2, mask
+
+
+def make_seg_scene(
+    size: int,
+    rng: np.random.RandomState,
+    num_classes: int = NUM_CLASSES,
+    n_seeds: int = 6,
+    family: str = "v1",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One Voronoi segmentation scene: a (size, size, 3) f32 image and a
+    (size, size) int32 mask. Each cell is cut from a full-size texture of a
+    random class, so the class is carried by texture, not by colour or
+    position."""
+    gen = TEXTURES[family]
+    pts = rng.rand(n_seeds, 2) * size
+    cls = rng.randint(0, num_classes, n_seeds)
+    yy, xx = np.mgrid[0:size, 0:size]
+    d2 = (yy[..., None] - pts[:, 0]) ** 2 + (xx[..., None] - pts[:, 1]) ** 2
+    cell = np.argmin(d2, axis=-1)  # (H, W) -> seed index
+    mask = cls[cell].astype(np.int32)
+    img = np.zeros((size, size, 3), np.float32)
+    for s in range(n_seeds):
+        sel = cell == s
+        if sel.any():
+            img[sel] = colorize(gen(int(cls[s]), size, rng), rng)[sel]
+    return img, mask

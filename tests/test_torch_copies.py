@@ -5,10 +5,11 @@ The port keeps numpy/PyTorch copies of what it took from jax-free modules
 of ``dinomc_tpu``: the state-dict exporters (``ckpt/state_dicts.py``), the
 reference-checkpoint import (``ckpt/torch_import.py``), the CSV and W&B
 loggers, the pretraining host readers (``data/{seco,packed,
-native_loader}.py``), the synthetic texture worlds (``utils/synthetic.py``)
-and the numpy half of ``eval/retrieval.py``. The same inputs go through
-both; the outputs must be equal: state dicts key for key and value for
-value, the same images decoded, the same CSV written, the same arrays drawn.
+native_loader}.py``), the synthetic texture worlds and Voronoi scenes
+(``utils/synthetic.py``) and the numpy half of ``eval/retrieval.py``. The
+same inputs go through both; the outputs must be equal: state dicts key for
+key and value for value, the same images decoded, the same CSV written, the
+same arrays drawn.
 """
 
 import ast
@@ -186,6 +187,25 @@ def test_texture_worlds_are_the_originals(family, seed):
     assert tsyn.NUM_CLASSES == jsyn.NUM_CLASSES and set(tsyn.TEXTURES) == set(jsyn.TEXTURES)
 
 
+@pytest.mark.parametrize("family", ["v1", "v2", "v2m"])
+@pytest.mark.parametrize("drift", ["color", "full"])
+def test_change_pairs_and_seg_scenes_are_the_originals(family, drift):
+    """The OSCD learning world's pairs and the Voronoi seg scenes, on the
+    same seeds, at an odd size and with more changed cells than seeds."""
+    for seed, size, n_seeds, n_change in ((0, 64, 6, 2), (3, 37, 4, 9)):
+        ours = tsyn.make_change_pair(size, np.random.RandomState(seed), n_seeds=n_seeds,
+                                     n_change=n_change, family=family, drift=drift)
+        ref = jsyn.make_change_pair(size, np.random.RandomState(seed), n_seeds=n_seeds,
+                                    n_change=n_change, family=family, drift=drift)
+        ours += tsyn.make_seg_scene(size, np.random.RandomState(seed), n_seeds=n_seeds,
+                                    family=family)
+        ref += jsyn.make_seg_scene(size, np.random.RandomState(seed), n_seeds=n_seeds,
+                                   family=family)
+        for a, b in zip(ours, ref):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("whit", [None, 0.5])
 def test_pca_is_the_original(whit):
     x = np.random.default_rng(10).standard_normal((40, 12)) @ np.diag(np.arange(1, 13))
@@ -228,6 +248,8 @@ def test_port_never_imports_the_jax_package():
     files = sorted((REPO / "dinomc_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "scripts" / "validate_learning_torch.py"]
     assert len(files) > 30
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {f"dinomc_tpu_torch/cli/{m}.py" for m in ("predict", "evaluate_stitched", "oscd")} <= names
     found = {str(f.relative_to(REPO)): hits for f in files if (hits := _imports_of_the_jax_package(f))}
     assert not found, found
 
