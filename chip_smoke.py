@@ -111,10 +111,25 @@ script exits non-zero:
    checkpoint, and 2 steps with the encoder trained (every encoder
    parameter moved by the optimizer, the running statistics moved, each
    BatchNorm's ``num_batches_tracked`` 2 a step); OSCD launches no kernel
-   of the table.
+   of the table;
+15. XCiT and BigEarthNet: ``train_dino`` for 5 XCiT-S/8 steps and 2
+   XCiT-M/8 steps (out_dim 65536, batch 8, the default crops, AdamW,
+   synthetic images, weights from a seed): finite losses, the student moved,
+   the teacher followed by EMA, K3 8 launches a step and no other kernel
+   (XCiT reaches no attention kernel); one XCiT-S/8 step with remat off,
+   ``full`` and ``branches`` from the same weights, images and draws (loss
+   within ``LOSS_RTOL`` of ``full``'s, step ms and peak memory); 3 XCiT-S/8
+   ``cls_train_step``s at 224 px, B = 32, and 3 with the backbone frozen
+   (bit-identical), no kernel launched; then the entry point
+   ``dinomc_tpu_torch.cli.bigearthnet`` on a BigEarthNet patch-folder tree
+   written in the phase (72 patches of 120 px B02/B03/B04 PNGs and CLC
+   labels; 2 train steps of 32 and a val pass of 32, 32 and 8) for
+   ResNet-50, XCiT-S/8 and ViT-S/8: a micro-mAP in [0, 100], and for the
+   ViT K1 12 and K2 12 a train step and K1 12 a val batch (phase 2 holds K1
+   and K2 against their plain version at 226 tokens, B = 32 and 8).
 
 Then one JSON line with each kernel's launches (K1's and K4's with phase
-14's), error, times, bound and library time, and as the last line ``{"ok": true, "device": {...}}``. With
+14's, K1's, K2's and K3's with phase 15's), error, times, bound and library time, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device it exits with 1 and prints no result.
 
 Every time in that line is device time: CUDA events around 10 calls
@@ -187,6 +202,10 @@ ATTN_SHAPES = [  # (what, B, N, heads, head_dim, boundary)
     # phase 14: the tiles of a 3840 x 2160 frame at 224 px, 2 x 2 and 3 x 3
     ("4K tiles 2 x 2 at 224 px", 4, 785, 6, 64, 0),
     ("4K tiles 3 x 3 at 224 px", 9, 785, 6, 64, 0),
+    # phase 15: the BigEarthNet ViT-S/8 fine-tune at 120 px (15 x 15 patches),
+    # its train and val batches of 32 and the val remainder of 8
+    ("BigEarthNet 120 px", 32, 226, 6, 64, 0),
+    ("BigEarthNet val remainder", 8, 226, 6, 64, 0),
 ]
 TRAIN_ARGS = [
     "--arch", "vit_small", "--patch_size", "8", "--out_dim", "65536",
@@ -283,6 +302,23 @@ OSCD_ARGS = [
     "--device", "cuda", "--backbone", "resnet50", "--batch_size", str(OSCD_B), "--epochs", "2",
     "--max_steps", "2", "--print_freq", "1", "--panel_samples", "4",
 ]
+# phase 15: XCiT DINO-MC pretraining (the ViT's crops, batch and head) and
+# the BigEarthNet-19 fine-tune on a patch-folder tree of 120 px band PNGs:
+# 72 patches at B = 32, so 2 train steps (the last 8 dropped) and val
+# batches of 32, 32 and 8
+XCIT_TRAIN_ARGS = [
+    "--arch", "xcit_small_12", "--patch_size", "8", "--out_dim", "65536",
+    "--batch_size_per_gpu", "8", "--data_path", "synthetic", "--max_steps", "5",
+    "--device", "cuda", "--print_freq", "1", "--num_workers", "4",
+]
+XCIT_M_STEPS, XCIT_CLS_STEPS = 2, 3
+XCIT_REMAT_RUNS = [(False, "full"), (True, "full"), (True, "branches")]  # (remat, policy)
+BEN_PATCHES, BEN_SIZE, BEN_B, BEN_STEPS = 72, 120, 32, 2
+BEN_ARGS = [
+    "--device", "cuda", "--epochs", "1", "--max_steps", str(BEN_STEPS),
+    "--batch_size_per_gpu", str(BEN_B), "--print_freq", "1",
+]
+BEN_ARCHS = [("resnet50", []), ("xcit_small_12", []), ("vit_small", ["--patch_size", "8"])]
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -1613,6 +1649,134 @@ def phase_oscd(torch, smi):
             raise AssertionError("OSCD trained-encoder run: see the line above")
 
 
+def _ben_tree(root):
+    """BEN_PATCHES BigEarthNet patch folders of BEN_SIZE px band PNGs
+    (``<patch>_B02.png``, ``_B03``, ``_B04``) and their
+    ``<patch>_labels_metadata.json`` of 1-4 CLC-43 names, from a seed."""
+    import numpy as np
+    from PIL import Image
+
+    from dinomc_tpu_torch.data.classification import BEN19_GROUPS
+
+    clc = [name for group in BEN19_GROUPS.values() for name in group]
+    rng = np.random.default_rng(15)
+    for i in range(BEN_PATCHES):
+        name = f"S2B_MSIL2A_{i:05d}"
+        os.makedirs(f"{root}/{name}")
+        for band in ("B02", "B03", "B04"):
+            img = rng.integers(0, 256, (BEN_SIZE, BEN_SIZE, 3), dtype=np.uint8)
+            Image.fromarray(img).save(f"{root}/{name}/{name}_{band}.png")
+        labels = [str(x) for x in rng.choice(clc, int(rng.integers(1, 5)), replace=False)]
+        with open(f"{root}/{name}/{name}_labels_metadata.json", "w") as f:
+            json.dump({"labels": labels}, f)
+
+
+def phase_xcit(torch, smi):
+    """XCiT pretraining and fine-tune steps, then the BigEarthNet CLI.
+    Returns the launches of the phase's main paths, summed by kernel."""
+    import dataclasses
+
+    from dinomc_tpu_torch.cli import bigearthnet
+    from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
+    from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.cls_trainer import ClsConfig, init_cls_train_state
+    from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
+
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    crops = 2 + len(build_config(get_args_parser().parse_args(XCIT_TRAIN_ARGS), 1)[0].local_sizes)
+    for arch, steps in (("xcit_small_12", 5), ("xcit_medium_24", XCIT_M_STEPS)):
+        tag = f"{arch}/8 train"
+        launches = _train_run(torch, smi, XCIT_TRAIN_ARGS + [
+            "--arch", arch, "--max_steps", str(steps)], tag, steps)[0]
+        _check_launches(tag, launches, {"photometric": steps * crops})
+        add(launches)
+        torch.cuda.empty_cache()
+
+    # remat off / full / branches: the same weights, images and DropPath draws
+    args = get_args_parser().parse_args(XCIT_TRAIN_ARGS)
+    mc_cfg, cfg = build_config(args, 1)
+    sch = build_schedules(args, args.batch_size_per_gpu, 1)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    B, S = args.batch_size_per_gpu, args.image_size
+    batches = [multicrop_augment(torch.rand(B, S, S, 3, generator=gen, device="cuda"),
+                                 draw_multicrop(gen, B, S, S, mc_cfg, device="cuda"), mc_cfg)
+               for _ in range(2)]
+    losses = {}
+    for remat, policy in XCIT_REMAT_RUNS:
+        state = init_dino_train_state(cfg, args.seed, "cuda")
+        _set_backbones(torch, state, remat=remat, remat_policy=policy)
+        runs = [_step(torch, state, batch, sch, cfg) for batch in batches]
+        name = policy if remat else "off"
+        losses[name] = [r[0] for r in runs]
+        loss, ms, launches, peak = runs[-1]  # the second step: cuDNN's plans are built
+        print(f"[xcit remat {name}] losses {losses[name]}, second step {ms:.3f} ms, "
+              f"peak memory {peak:.3f} GiB, launches {launches}  [{smi}]")
+        if launches:
+            raise AssertionError(f"XCiT step launched {launches}")
+        del state
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for name in ("off", "branches")
+              for a, b in zip(losses[name], losses["full"]))
+    print(f"[xcit remat] loss |policy - full| / |full| max {rel:.3e} (bound {LOSS_RTOL})")
+    if not rel <= LOSS_RTOL:
+        raise AssertionError("XCiT's remat policies disagree with full")
+
+    cls_gen = torch.Generator(device="cuda").manual_seed(17)
+    ccfg = ClsConfig(arch="xcit_small_12", num_classes=CLS_CLASSES)
+    state = init_cls_train_state(ccfg, seed=0, device="cuda")
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    _check_launches("cls xcit_small_12/8", _cls_steps(
+        torch, state, ccfg, XCIT_CLS_STEPS, cls_gen, "cls xcit_small_12/8", smi), {})
+    now = state.model.state_dict()
+    moved = min(max((now[k] - init[k]).abs().max().item() for k in now if k.startswith(part))
+                for part in ("backbone.", "fc."))
+    before = {k: v.clone() for k, v in now.items()}
+    frozen = dataclasses.replace(ccfg, freeze_backbone=True)
+    _check_launches("cls xcit_small_12/8 frozen", _cls_steps(
+        torch, state, frozen, XCIT_CLS_STEPS, cls_gen, "cls xcit_small_12/8 frozen", smi), {})
+    now = state.model.state_dict()
+    same = all(torch.equal(now[k], v) for k, v in before.items() if k.startswith("backbone."))
+    print(f"[cls xcit_small_12/8] backbone and classifier moved (min of max|change| "
+          f"{moved:.3e}); frozen: backbone bit-identical {same}, classifier moved "
+          f"{not torch.equal(now['fc.kernel'], before['fc.kernel'])}")
+    if not (moved > 0 and same and not torch.equal(now["fc.kernel"], before["fc.kernel"])):
+        raise AssertionError("the XCiT fine-tune: see the line above")
+    del state
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        _ben_tree(f"{root}/ben")
+        for arch, extra in BEN_ARCHS:
+            args = bigearthnet.get_args_parser().parse_args(
+                BEN_ARGS + ["--arch", arch, "--data_path", f"{root}/ben",
+                            "--output_dir", f"{root}/{arch}"] + extra)
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            best = bigearthnet.run(args)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            tag = f"bigearthnet cli {arch}"
+            print(f"[{tag}] micro mAP {best:.4f}, {wall:.1f} s for {BEN_STEPS} steps of "
+                  f"{BEN_B} and a val pass of {BEN_PATCHES} at {BEN_SIZE} px  [{smi}]")
+            if not (math.isfinite(best) and 0.0 <= best <= 100.0):
+                raise AssertionError(f"{tag}: micro mAP {best}")
+            want = {}
+            if arch.startswith("vit_"):  # remat 'attn': one K1 and one K2 a block a step
+                depth = ClsConfig(arch=arch).encoder().vit_config().depth
+                val_batches = -(-BEN_PATCHES // BEN_B)
+                want = {"attention_fwd": depth * (BEN_STEPS + val_batches),
+                        "attention_bwd": depth * BEN_STEPS}
+            _check_launches(tag, launches, want)
+            add(launches)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1634,6 +1798,7 @@ def main() -> int:
     convnet_launches = phase_convnets(torch, smi)
     full_res_launches = phase_full_res(torch, smi)
     phase_oscd(torch, smi)
+    xcit_launches = phase_xcit(torch, smi)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -1645,8 +1810,9 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
-    def with_cls(counts, name):  # a main path's launches, phases 12 and 14's counted in
-        return counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
+    def with_cls(counts, name):  # a main path's launches, phases 12, 14 and 15's counted in
+        return (counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
+                + xcit_launches.get(name, 0))
 
     kernels = [
         entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
@@ -1656,7 +1822,8 @@ def main() -> int:
               with_cls(launches, "attention_bwd"), grad_err, attn_t["bwd_ms"],
               attn_t["bwd_plain_ms"], attn_t["bwd_bound"], attn_t["bwd_library_ms"]),
         entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
-              launches.get("photometric", 0) + convnet_launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
+              launches.get("photometric", 0) + convnet_launches.get("photometric", 0)
+              + xcit_launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
               photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),

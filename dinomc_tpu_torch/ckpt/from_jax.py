@@ -12,7 +12,9 @@ tensors. A DINO head with BatchNorm has no exporter in the JAX package
 (``torch_export.py:85-89`` refuses it), so it is mapped here, to the
 reference's shifted Sequential indices; so is the OSCD ``Siamese`` (its
 encoder through ``resnet_state_dict``, its decoder convolutions HWIO ->
-OIHW under the JAX tree's names), which the JAX package never exports.
+OIHW under the JAX tree's names), which the JAX package never exports, and
+XCiT (``xcit_state_dict``: the JAX tree's names, its stacked blocks split
+into one module a layer), which has no ``.pth`` layout in either package.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from dinomc_tpu_torch.models.siamese import Siamese
 from dinomc_tpu_torch.models.swin import SwinTransformer
 from dinomc_tpu_torch.models.upernet import UPerNet
 from dinomc_tpu_torch.models.vit import VisionTransformer
+from dinomc_tpu_torch.models.xcit import XCiT
 from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
 from dinomc_tpu_torch.train.oscd_trainer import OSCDTrainState
@@ -67,6 +70,23 @@ def head_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.nd
     return sd
 
 
+def _linear(sd, name, p) -> None:
+    sd[name + ".weight"] = np.asarray(p["kernel"], np.float32).T.copy()
+    sd[name + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
+def _conv(sd, name, kernel, bias) -> None:
+    """HWIO -> (out, in, kh, kw)."""
+    sd[name + ".weight"] = np.asarray(kernel, np.float32).transpose(3, 2, 0, 1).copy()
+    sd[name + ".bias"] = np.asarray(bias, np.float32)
+
+
+def _affine(sd, name, p) -> None:
+    """A LayerNorm's or BatchNorm's ``scale`` and ``bias``."""
+    sd[name + ".weight"] = np.asarray(p["scale"], np.float32)
+    sd[name + ".bias"] = np.asarray(p["bias"], np.float32)
+
+
 def siamese_state_dict(params: Dict[str, Any], bn_state: Dict[str, Any]) -> Dict[str, np.ndarray]:
     """A JAX ``init_siamese`` pair -> the port's ``Siamese`` state dict:
     ``encoder.*`` in torchvision's names, ``lateral.{i}``, ``smooth`` and
@@ -75,8 +95,43 @@ def siamese_state_dict(params: Dict[str, Any], bn_state: Dict[str, Any]) -> Dict
     convs = {f"lateral.{i}": p for i, p in enumerate(params["lateral"])}
     convs.update(smooth=params["smooth"], classifier=params["classifier"])
     for name, p in convs.items():
-        sd[name + ".weight"] = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1).copy()
-        sd[name + ".bias"] = np.asarray(p["bias"], np.float32)
+        _conv(sd, name, p["kernel"], p["bias"])
+    return sd
+
+
+def xcit_state_dict(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A JAX ``init_xcit`` tree -> the port's ``XCiT`` state dict: the JAX
+    names, the blocks' leaves unstacked along their leading layer axis,
+    Linear kernels (in, out) -> (out, in), conv kernels HWIO -> OIHW."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, p in enumerate(params["stem"]):
+        _conv(sd, f"{prefix}stem.{i}", p["kernel"], p["bias"])
+    _linear(sd, prefix + "pos_proj", params["pos_proj"])
+    sd[prefix + "cls_token"] = np.asarray(params["cls_token"], np.float32)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    blocks = {k: {kk: f32(vv) for kk, vv in v.items()} if isinstance(v, dict) else f32(v)
+              for k, v in params["blocks"].items()}
+    for l in range(blocks["temp"].shape[0]):
+        pre = f"{prefix}blocks.{l}."
+        row = {k: {kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict) else v[l]
+               for k, v in blocks.items()}
+        for name in ("norm1", "norm3", "norm2", "lpi_bn"):
+            _affine(sd, pre + name, row[name])
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            _linear(sd, pre + name, row[name])
+        for name in ("lpi_conv1", "lpi_conv2"):
+            _conv(sd, pre + name, row[name]["kernel"], row[name]["bias"])
+        for name in ("temp", "gamma1", "gamma3", "gamma2"):
+            sd[pre + name] = row[name].copy()
+    for i, cb in enumerate(params["cls_blocks"]):
+        pre = f"{prefix}cls_blocks.{i}."
+        for name in ("norm1", "norm2"):
+            _affine(sd, pre + name, cb[name])
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            _linear(sd, pre + name, cb[name])
+        for name in ("gamma1", "gamma2"):
+            sd[pre + name] = np.asarray(cb[name], np.float32)
+    _affine(sd, prefix + "norm", params["norm"])
     return sd
 
 
@@ -86,12 +141,12 @@ def _resnet(pair, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def state_dict_from_jax(module: nn.Module, params: Any) -> Dict[str, torch.Tensor]:
     """The port's state dict for ``module`` built from the matching JAX tree:
-    a ViT or Swin tree, a ResNet's, a UPerNet's or a Siamese's
+    a ViT, Swin or XCiT tree, a ResNet's, a UPerNet's or a Siamese's
     ``(params, bn_state)`` pair, a DINO-head tree, a ``{'backbone', 'head'}``
     tree, or a classifier's ``{'backbone', 'fc'}`` tree (a ResNet backbone as
     a pair)."""
     backbones = {VisionTransformer: vit_state_dict, SwinTransformer: swin_state_dict,
-                 ResNet: _resnet}
+                 ResNet: _resnet, XCiT: xcit_state_dict}
     if isinstance(module, UPerNet):
         return _tensors(upernet_state_dict(*params))
     if isinstance(module, Siamese):

@@ -43,9 +43,16 @@ def load_pretrained_backbone(module, path: str, checkpoint_key: str = "teacher")
     a reference ``.pth`` (``load_pretrained_weights`` parity,
     ``utils/utils.py:75-119``). ``checkpoint_key``: 'teacher' (default),
     'student' or 'none'. An orbax checkpoint directory of the JAX package
-    is refused: the port reads none (ROADMAP.md queue 1 #18)."""
+    is refused: the port reads none (ROADMAP.md queue 1 #18). So is any
+    file for an XCiT: neither package maps a reference XCiT ``.pth`` onto its
+    own XCiT (the JAX ``load_backbone_for_arch`` refuses it too)."""
     from dinomc_tpu_torch.ckpt.torch_import import load_backbone
+    from dinomc_tpu_torch.models.xcit import XCiT
 
+    if isinstance(module, XCiT):
+        raise ValueError(f"{path}: no torch importer for XCiT (supported: the ViTs, "
+                         "resnet50, wide_resnet50_2, swin_t); train it from this port's "
+                         "own checkpoints instead")
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories are not read by the port yet "

@@ -16,8 +16,11 @@ needs no dataset. One device: the JAX CLI's data parallelism over every
 chip (``make_mesh``) is not ported yet (ROADMAP.md queue 1 #17). The
 default ``--arch resnet50`` and ``wide_resnet50_2`` run with their
 BatchNorm: batch statistics in the train step, running statistics in the
-evaluations and the k-NN and probe features. XCiT raises with its ROADMAP.md
-item (#15), as ``train_dino`` does.
+evaluations and the k-NN and probe features. XCiT runs with its LPI
+BatchNorm on each batch's statistics, in the evaluations and the features
+too (batches of ``--batch_size_per_gpu``, as in the JAX CLI);
+``--pretrained_weights`` with it is refused, as in the JAX CLI: no
+reference XCiT ``.pth`` maps onto either package's XCiT.
 
 Run ``python -m dinomc_tpu_torch.cli.eurosat --help``.
 """

@@ -8,7 +8,9 @@ Checkpoints are ``torch.save`` files with restart-from-latest
 (``ckpt/checkpoint.py``); rerunning with the same ``--output_dir`` resumes.
 
 Run ``python -m dinomc_tpu_torch.cli.train_dino --help``; ``--data_path
-synthetic`` needs no dataset. Not ported yet, and refused with a pointer to
+synthetic`` needs no dataset. Every ``--arch`` of the JAX CLI runs, XCiT
+(``xcit_small_12``, ``xcit_medium_24``) at the default ``--patch_size 8``
+too, under its own remat (``--remat_policy`` is the ViT's). Not ported yet, and refused with a pointer to
 ROADMAP.md: ``--data_mode tp``, ``--model_parallel``, ``--fsdp``,
 ``--grad_accum_steps > 1`` and ``--bands``.
 """

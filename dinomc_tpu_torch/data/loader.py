@@ -4,6 +4,8 @@ Counterpart of ``dinomc_tpu/data/loader.py``:
   * ``ShardedSampler``: deterministic per-epoch shuffle, sharded across
     processes (``DistributedSampler`` + ``set_epoch``,
     ``main_dino_mc.py:193,324-325``);
+  * ``random_subset``: the seeded fraction of a dataset that
+    ``--train_frac`` keeps (BigEarthNet-10%);
   * ``PrefetchLoader``: background threads assemble each batch on the host,
     copy it into pinned memory and start the copy to ``device``
     (non-blocking), keeping ``prefetch`` batches in flight. The copy is
@@ -65,6 +67,13 @@ class ShardedSampler:
         if self.drop_last:
             return per_shard // self.batch_size
         return (per_shard + self.batch_size - 1) // self.batch_size
+
+
+def random_subset(n: int, frac: float, seed: int = 42) -> np.ndarray:
+    """Seeded fractional subset of range(n) (``utils/data.py:27-30``)."""
+    rng = np.random.RandomState(seed)
+    k = int(round(n * frac))
+    return rng.permutation(n)[:k]
 
 
 class PrefetchLoader:

@@ -1,14 +1,15 @@
-"""Encoder registry: the ViTs, Swin-T and the ResNets.
+"""Encoder registry: the ViTs, Swin-T, the ResNets and XCiT.
 
 Counterpart of ``dinomc_tpu/models/encoders.py``: one interface the DINO
 and classification trainers call without knowing the architecture. The
-ViTs, Swin-T, ResNet-50, WRN-50-2 and the micro ``resnet_test`` are ported;
-XCiT raises ``NotImplementedError`` naming its ROADMAP.md item. The
 ResNets' BatchNorm state lives in the modules' buffers: ``apply`` with
 ``train`` normalizes by the batch and moves them in place, where the JAX
 ``apply`` returns a new state tree, so ``apply`` returns the embeddings
-alone. Only the ViTs pack two crop batches into one forward: Swin's shifted
-windows and the convolutions would mix them.
+alone. XCiT's LPI BatchNorm keeps no state: it normalizes by the batch
+whether ``train`` or not. Only the ViTs pack two crop batches into one
+forward: Swin's shifted windows, XCiT's LPI and the convolutions would mix
+them. XCiT's remat follows its own ``XCiTConfig`` (``full``), not
+``remat_policy``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,21 +22,17 @@ import torch
 from dinomc_tpu_torch.models import resnet as rn
 from dinomc_tpu_torch.models import swin as sw
 from dinomc_tpu_torch.models import vit as vt
+from dinomc_tpu_torch.models import xcit as xc
 
-Encoder = Union[vt.VisionTransformer, sw.SwinTransformer, rn.ResNet]
-
-_NOT_PORTED = {
-    "xcit_small_12": "queue 1 #15 (models/xcit.py)",
-    "xcit_medium_24": "queue 1 #15 (models/xcit.py)",
-}
+Encoder = Union[vt.VisionTransformer, sw.SwinTransformer, rn.ResNet, xc.XCiT]
 
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     # vit_tiny | vit_small | vit_base | vit_test | swin_t | resnet50 |
-    # wide_resnet50_2 | resnet_test
+    # wide_resnet50_2 | resnet_test | xcit_small_12 | xcit_medium_24
     arch: str
-    patch_size: int = 16  # ViT only: Swin-T's patch is 4, as in the JAX package
+    patch_size: int = 16  # ViT and XCiT: Swin-T's patch is 4, as in the JAX package
     img_size: int = 224
     drop_path_rate: float = 0.0  # student only
     remat_policy: str = "attn"  # ViT only; see models/vit.ViTConfig
@@ -43,15 +40,16 @@ class EncoderConfig:
     gelu_approx: bool = True
 
     def __post_init__(self):
-        if not (self.is_vit or self.has_bn or self.arch == "swin_t"):
-            item = _NOT_PORTED.get(self.arch, "the encoder queue")
-            raise NotImplementedError(
-                f"encoder {self.arch!r} is not ported to PyTorch yet (ROADMAP.md {item})"
-            )
+        if not (self.is_vit or self.has_bn or self.is_xcit or self.arch == "swin_t"):
+            raise ValueError(f"unknown encoder {self.arch!r}")
 
     @property
     def is_vit(self) -> bool:
         return self.arch in vt.VIT_FACTORIES
+
+    @property
+    def is_xcit(self) -> bool:
+        return self.arch in xc.XCIT_FACTORIES
 
     @property
     def has_bn(self) -> bool:
@@ -84,12 +82,22 @@ class EncoderConfig:
     def resnet_config(self) -> rn.ResNetConfig:
         return rn.RESNET_FACTORIES[self.arch](compute_dtype=self.compute_dtype)
 
+    def xcit_config(self) -> xc.XCiTConfig:
+        return xc.XCIT_FACTORIES[self.arch](
+            patch_size=self.patch_size,
+            compute_dtype=self.compute_dtype,
+            drop_path_rate=self.drop_path_rate,
+            gelu_approx=self.gelu_approx,
+        )
+
     @property
     def embed_dim(self) -> int:
         if self.is_vit:
             return self.vit_config().embed_dim
         if self.has_bn:
             return self.resnet_config().out_dim
+        if self.is_xcit:
+            return self.xcit_config().embed_dim
         return self.swin_config().out_dim
 
     def build(self, gen: Optional[torch.Generator] = None) -> Encoder:
@@ -98,6 +106,8 @@ class EncoderConfig:
             return vt.VisionTransformer(self.vit_config(), gen)
         if self.has_bn:
             return rn.ResNet(self.resnet_config(), gen)
+        if self.is_xcit:
+            return xc.XCiT(self.xcit_config(), gen)
         return sw.SwinTransformer(self.swin_config(), gen)
 
     def apply(
@@ -110,6 +120,8 @@ class EncoderConfig:
             return vt.vit_forward(model, x, generator, not train)
         if self.has_bn:
             return rn.resnet_forward(model, x, train)
+        if self.is_xcit:
+            return xc.xcit_forward(model, x, generator, not train)
         return sw.swin_forward(model, x, generator, not train)
 
     def apply_packed(

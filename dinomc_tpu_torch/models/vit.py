@@ -345,11 +345,11 @@ class _Contexts:
         return self.stack.__exit__(*exc)
 
 
-def _remat_contexts(policy: str):
-    """``checkpoint``'s ``context_fn`` for a policy that keeps something:
-    the kernel record for ``attn_out``, the selective-checkpoint policy for
-    the op-level names."""
-    keep = REMAT_POLICIES[policy]
+def remat_contexts(keep: Tuple[str, ...]):
+    """``checkpoint``'s ``context_fn`` keeping the names in ``keep`` (a
+    policy's, ``REMAT_POLICIES``; XCiT's ``branches`` names its own): the
+    kernel record for ``attn_out``, the selective-checkpoint policy for the
+    op-level names."""
     op_names = tuple(k for k in keep if k != "attn_out")
 
     def decide(ctx, op, *args, **kwargs):
@@ -373,7 +373,8 @@ def _remat(cfg: ViTConfig, fn, *args):
         return fn(*args)
     if not REMAT_POLICIES[cfg.remat_policy]:
         return checkpoint(fn, *args, use_reentrant=False)
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts(cfg.remat_policy))
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=remat_contexts(REMAT_POLICIES[cfg.remat_policy]))
 
 
 def _attention(x: torch.Tensor, attn: Attention, num_heads: int, boundary: int):

@@ -13,8 +13,8 @@ JAX step keeps ``new_bn`` whether the backbone is frozen or not;
 ``cls_predict`` normalizes by the running statistics. The classifier is a
 (D, C) ``kernel`` and a ``bias``, as in the JAX package. The step updates
 ``ClsTrainState`` in place. Encoders come from
-``models/encoders.EncoderConfig`` (the ViTs, Swin-T and the ResNets); XCiT
-raises with its ROADMAP.md item.
+``models/encoders.EncoderConfig`` (the ViTs, Swin-T, the ResNets and XCiT,
+whose LPI BatchNorm reads the batch in ``cls_predict`` too).
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
-"""DINO-MC training step for the ViTs, Swin-T and the ResNets, in PyTorch.
+"""DINO-MC training step for the ViTs, Swin-T, the ResNets and XCiT, in PyTorch.
 
 Counterpart of ``dinomc_tpu/train/dino_trainer.py``; parity target the
 reference ``train_one_epoch`` (``main_dino_mc.py:356-416``). One step:
 teacher forward over the global crops (no grad), student forward over every
-crop (ViT local size-buckets packed two to a sequence; Swin and the convnets
-one forward a bucket), the weight-normed head and the centred DINO loss, the
+crop (ViT local size-buckets packed two to a sequence; Swin, XCiT and the
+convnets one forward a bucket, so XCiT's LPI BatchNorm sees the JAX
+package's batches: all globals in one call, each local size in one), the weight-normed head and the centred DINO loss, the
 backward pass, per-tensor clipping, the last-layer freeze, the optimizer
 (AdamW, SGD or LARS), the teacher EMA (which reads the *new* student) and
 the centre update.

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card:
 
-    python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t|resnet50]
+    python scripts/profile_torch_step.py [--out_dir output_dir/profile] [--arch swin_t|resnet50|xcit_small_12]
     python scripts/profile_torch_step.py --remat_policy off --mlp_impl fused
     python scripts/profile_torch_step.py --task seg [--train_backbone]
 
@@ -11,8 +11,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 (``dinomc_tpu_torch``) at ViT-S/8 (or Swin-T with ``--arch swin_t``, or
 ResNet-50 / WRN-50-2 with ``--arch resnet50`` / ``wide_resnet50_2`` under
 the DINO convnet recipe: LARS, BN in the head, lr 0.3 linearly scaled,
-weight decay 1e-6), out_dim 65536, batch 8, under the ViT's
-``--remat_policy`` (the CLI's, or
+weight decay 1e-6, or XCiT-S/8 / -M/8 with ``--arch xcit_small_12`` /
+``xcit_medium_24`` under its own remat, ``off`` turning it off), out_dim
+65536, batch 8, under the ViT's ``--remat_policy`` (the CLI's, or
 ``off`` for ``ViTConfig.remat=False``) and ``--mlp_impl``; ``--task seg``
 its UPerNet fine-tune step at ViT-S/8, 512 px (4097 tokens), batch 4, 8
 classes, decoder-only unless ``--train_backbone``. Weights come from a
@@ -109,6 +110,10 @@ def _dino_step(dev, arch: str, remat_policy: str, mlp_impl: str):
         for model in (state.student, state.teacher):
             model["backbone"].cfg = dataclasses.replace(
                 model["backbone"].cfg, remat=remat_policy != "off", mlp_impl=mlp_impl)
+    elif arch.startswith("xcit_"):  # its own remat ('full'); 'off' turns it off
+        for model in (state.student, state.teacher):
+            model["backbone"].cfg = dataclasses.replace(
+                model["backbone"].cfg, remat=remat_policy != "off")
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     images = torch.rand(batch, args.image_size, args.image_size, 3, generator=gen, device=dev)
 
@@ -167,8 +172,9 @@ def main() -> int:
     p.add_argument("--train_backbone", action="store_true",
                    help="seg: train the ViT too (default: decoder-only)")
     p.add_argument("--arch", default="vit_small",
-                   choices=["vit_small", "swin_t", "resnet50", "wide_resnet50_2"],
-                   help="dino: the encoder (ViT-S/8, Swin-T or a ResNet)")
+                   choices=["vit_small", "swin_t", "resnet50", "wide_resnet50_2",
+                            "xcit_small_12", "xcit_medium_24"],
+                   help="dino: the encoder (ViT-S/8, Swin-T, a ResNet or XCiT-S/8, -M/8)")
     p.add_argument("--remat_policy", default="attn", choices=["off", *sorted(REMAT_POLICIES)],
                    help="dino, ViT: the block remat policy ('off': no remat)")
     p.add_argument("--mlp_impl", default="dense", choices=list(MLP_IMPLS),
@@ -233,13 +239,16 @@ def main() -> int:
         f: sum(e["dur"] for e in dev_events if f in e["name"]) / 1e3 / n
         for f in KERNEL_FUNCS
     }
+    remat = opt.remat_policy  # XCiT: its own 'full' unless 'off'
+    if opt.arch.startswith("xcit_") and remat != "off":
+        remat = "full"
     summary = {
         "card": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "task": opt.task + ("+backbone" if opt.train_backbone else "")
         + (f" {opt.arch}" if opt.task == "dino" else "")
-        + (f" remat={opt.remat_policy} mlp={opt.mlp_impl}" if opt.task == "dino" else ""),
+        + (f" remat={remat} mlp={opt.mlp_impl}" if opt.task == "dino" else ""),
         "batch": batch,
         "unprofiled_ms": {
             **dict(zip(parts, med)),

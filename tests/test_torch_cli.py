@@ -95,12 +95,14 @@ def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
     ["--grad_accum_steps", "2"], ["--bands", "B4", "B3", "B2"],
     # the convnets and LARS are ported: with them, what is not is still refused
     ["--arch", "resnet50", "--model_parallel", "2"],
-    ["--optimizer", "lars", "--grad_accum_steps", "2"], ["--arch", "xcit_small_12"],
+    ["--optimizer", "lars", "--grad_accum_steps", "2"],
+    ["--arch", "xcit_small_12", "--grad_accum_steps", "2"],
 ], ids=lambda f: f[0].lstrip("-") + "-" + f[1])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags):
-    """A case's id is its first flag: in [arch-resnet50] and
-    [optimizer-lars] the option refused is the unported one that follows
-    the ported convnet or LARS."""
+    """A case's id is its first flag: in [arch-resnet50],
+    [arch-xcit_small_12] and [optimizer-lars] the option refused is the
+    unported one that follows the ported convnet, XCiT or LARS (an XCiT run
+    of the CLI: tests/test_torch_xcit.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_dino(_args(tmp_path, "--max_steps", "1", *flags))
 

@@ -88,11 +88,14 @@ def test_lars_is_registered_and_builds_a_train_state():
 
 
 def test_lars_still_raises_with_its_roadmap_item():
-    """What a LARS run still cannot use is refused with its ROADMAP.md
-    item: an XCiT encoder (#15)."""
-    with pytest.raises(NotImplementedError, match="#15"):
-        tdino.init_dino_train_state(tdino.DinoConfig(arch="xcit_small_12", out_dim=16,
-                                                     optimizer="lars"))
+    """LARS takes an XCiT encoder too (ported, tests/test_torch_xcit.py):
+    XCiT-S/8 builds a LARS train state with one momentum buffer a
+    parameter, a block's temperature included."""
+    state = tdino.init_dino_train_state(tdino.DinoConfig(arch="xcit_small_12", out_dim=16,
+                                                         optimizer="lars"))
+    params = dict(state.student.named_parameters())
+    assert set(state.opt_state) == {"mu"} and set(state.opt_state["mu"]) == set(params)
+    assert state.opt_state["mu"]["backbone.blocks.11.temp"].shape == (8,)
 
 
 def _train_view(key, images):
@@ -188,10 +191,13 @@ def test_three_cls_steps_match_jax(arch, mode, monkeypatch):
 
 
 def test_unported_encoders_name_their_roadmap_item():
-    """The convnets are ported (``resnet50`` is 2048 wide); XCiT is not."""
+    """The convnets are ported (``resnet50`` is 2048 wide), and so is XCiT:
+    XCiT-S/8 builds a classifier on its 384-wide CLS output, XCiT-M 512."""
     assert tcls.ClsConfig(arch="resnet50").encoder().embed_dim == 2048
-    with pytest.raises(NotImplementedError, match="#15"):
-        tcls.init_cls_train_state(tcls.ClsConfig(arch="xcit_small_12"))
+    assert tcls.ClsConfig(arch="xcit_medium_24").encoder().embed_dim == 512
+    state = tcls.init_cls_train_state(tcls.ClsConfig(arch="xcit_small_12"))
+    assert type(state.model["backbone"]).__name__ == "XCiT"
+    assert state.model["fc"].kernel.shape == (384, 10)
 
 
 def _images(seed, size=CROP):
@@ -307,14 +313,21 @@ def test_cli_evaluates_a_finetuned_pth(tmp_path, capsys):
     assert top1 == 100.0 * float((pred.numpy() == labels).sum()) / 32
 
 
-def test_cli_refusals(tmp_path):
+def test_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="smaller than the batch"):
         _cli(tmp_path, "--batch_size_per_gpu", "128")
-    # the default --arch resnet50 runs since the convnets were ported; XCiT
-    # is refused with its ROADMAP.md item
-    args = eurosat.get_args_parser().parse_args(["--device", "cpu", "--arch", "xcit_small_12"])
-    with pytest.raises(NotImplementedError, match="#15"):
-        eurosat.run(args)
+    # XCiT runs since it was ported (here a two-layer stand-in at its width,
+    # as tests/test_torch_xcit.py has it); --pretrained_weights with it is
+    # refused, as the JAX package has no importer for it either
+    from dinomc_tpu_torch.models import xcit as txc
+
+    monkeypatch.setitem(txc.XCIT_FACTORIES, "xcit_small_12", lambda patch_size=16, **kw:
+                        txc.XCiTConfig(patch_size=patch_size, depth=2, cls_attn_layers=1, **kw))
+    top1 = _cli(tmp_path / "xcit", "--arch", "xcit_small_12", "--epochs", "1", "--max_steps", "1")
+    assert 0.0 <= top1 <= 100.0
+    with pytest.raises(ValueError, match="no torch importer for XCiT"):
+        _cli(tmp_path / "xcit_pth", "--arch", "xcit_small_12", "--pretrained_weights",
+             str(tmp_path / "any.pth"))
     if not torch.cuda.is_available():  # no fallback to the CPU
         args = eurosat.get_args_parser().parse_args(["--arch", "vit_tiny"])
         with pytest.raises(RuntimeError, match="no CUDA device"):

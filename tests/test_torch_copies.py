@@ -6,9 +6,11 @@ of ``dinomc_tpu``: the state-dict exporters (``ckpt/state_dicts.py``), the
 reference-checkpoint import (``ckpt/torch_import.py``), the CSV and W&B
 loggers, the pretraining host readers (``data/{seco,packed,
 native_loader}.py``), the synthetic texture worlds and Voronoi scenes
-(``utils/synthetic.py``) and the numpy half of ``eval/retrieval.py``. The
-same inputs go through both; the outputs must be equal: state dicts key for
-key and value for value, the same images decoded, the same CSV written, the
+(``utils/synthetic.py``), the numpy half of ``eval/retrieval.py``, the
+BigEarthNet-19 nomenclature and LMDB reader of
+``data/classification.py`` and ``data/loader.random_subset``. The same
+inputs go through both; the outputs must be equal: state dicts key for key
+and value for value, the same images decoded, the same CSV written, the
 same arrays drawn.
 """
 
@@ -22,6 +24,8 @@ import torch
 from PIL import Image
 
 from dinomc_tpu.ckpt import torch_export, torch_import as jimport
+from dinomc_tpu.data import classification as jcls_data
+from dinomc_tpu.data import loader as jloader
 from dinomc_tpu.data import native_loader as jnative
 from dinomc_tpu.data import packed as jpacked
 from dinomc_tpu.data import seco as jseco
@@ -34,6 +38,8 @@ from dinomc_tpu.utils import logging as jlog
 from dinomc_tpu.utils import synthetic as jsyn
 from dinomc_tpu_torch.ckpt import state_dicts
 from dinomc_tpu_torch.ckpt import torch_import as timport
+from dinomc_tpu_torch.data import classification as tcls_data
+from dinomc_tpu_torch.data import loader as tloader
 from dinomc_tpu_torch.data import native_loader as tnative
 from dinomc_tpu_torch.data import packed as tpacked
 from dinomc_tpu_torch.data import seco as tseco
@@ -227,6 +233,48 @@ def test_retrieval_map_is_the_original():
     assert tret.compute_ap(np.array([0, 3, 7]), 4) == jret.compute_ap(np.array([0, 3, 7]), 4)
 
 
+def test_ben19_nomenclature_is_the_original():
+    """The 19 groups in order, and CLC-43 names to multi-hot: kept, merged,
+    dropped, repeated, unknown and none."""
+    assert tcls_data.BEN19_GROUPS == jcls_data.BEN19_GROUPS
+    assert tcls_data.BEN19_CLASSES == jcls_data.BEN19_CLASSES
+    clc = [name for group in jcls_data.BEN19_GROUPS.values() for name in group]
+    rng = np.random.default_rng(12)
+    cases = [[], ["Pastures"], ["Salines", "Salt marshes"], ["Pastures", "Pastures"],
+             ["Airports", "Road and rail networks and associated land", "not a class"]]
+    cases += [list(rng.choice(clc + ["Airports"], k)) for k in (1, 3, 6, 10)]
+    for labels in cases:
+        ours = tcls_data.clc_labels_to_multihot(labels)
+        ref = jcls_data.clc_labels_to_multihot(labels)
+        assert ours.dtype == ref.dtype == np.float32 and ours.shape == (19,)
+        np.testing.assert_array_equal(ours, ref, err_msg=str(labels))
+
+
+@pytest.mark.parametrize("n,frac,seed", [(64, 0.5, 0), (1000, 0.1, 42), (7, 0.3, 3), (5, 1.0, 1),
+                                         (10, 0.04, 2)])
+def test_random_subset_is_the_original(n, frac, seed):
+    ours, ref = tloader.random_subset(n, frac, seed=seed), jloader.random_subset(n, frac, seed=seed)
+    assert ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(tloader.random_subset(n, frac), jloader.random_subset(n, frac))
+
+
+def test_lmdb_reader_raises_as_the_original_without_lmdb(tmp_path, monkeypatch):
+    """Both refuse with the same ``ImportError`` where ``lmdb`` cannot be
+    imported (it is made unimportable here, wherever it is installed)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    msgs = []
+    for mod in (tcls_data, jcls_data):
+        with pytest.raises(ImportError, match="requires the 'lmdb' package") as err:
+            mod.LMDBDataset(str(tmp_path / "x.lmdb"))
+        msgs.append(str(err.value))
+        with pytest.raises(ImportError):
+            mod.make_lmdb([1], str(tmp_path / "y.lmdb"))
+    assert msgs[0] == msgs[1]
+
+
 def _imports_of_the_jax_package(path: Path):
     """(line, module) of every ``import dinomc_tpu...`` / ``from dinomc_tpu...``
     in a file, at any depth (inside functions too); the port itself excepted."""
@@ -249,7 +297,9 @@ def test_port_never_imports_the_jax_package():
         REPO / "chip_smoke.py", REPO / "scripts" / "validate_learning_torch.py"]
     assert len(files) > 30
     names = {str(f.relative_to(REPO)) for f in files}
-    assert {f"dinomc_tpu_torch/cli/{m}.py" for m in ("predict", "evaluate_stitched", "oscd")} <= names
+    assert {f"dinomc_tpu_torch/cli/{m}.py" for m in ("predict", "evaluate_stitched", "oscd",
+                                                      "bigearthnet")} <= names
+    assert "dinomc_tpu_torch/models/xcit.py" in names
     found = {str(f.relative_to(REPO)): hits for f in files if (hits := _imports_of_the_jax_package(f))}
     assert not found, found
 

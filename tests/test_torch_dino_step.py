@@ -224,11 +224,18 @@ def test_plan_packing_bench_sizes():
 
 
 def test_non_vit_encoders_name_their_roadmap_item():
-    """Swin-T and the convnets are ported; XCiT names its ROADMAP.md item."""
+    """Swin-T, the convnets and XCiT are ported: XCiT registers its two
+    widths, has no BatchNorm state, packs no crops (``_plan_packing`` leaves
+    every bucket single) and takes ``patch_size``."""
     assert EncoderConfig(arch="resnet50").has_bn and not EncoderConfig(arch="swin_t").has_bn
-    for arch in ("xcit_small_12", "xcit_medium_24"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EncoderConfig(arch=arch)
+    for arch, width in (("xcit_small_12", 384), ("xcit_medium_24", 512)):
+        enc = EncoderConfig(arch=arch, patch_size=8)
+        assert enc.embed_dim == width and enc.xcit_config().patch_size == 8
+        assert not (enc.has_bn or enc.supports_packing)
+        work = [(s, torch.zeros(4, s, s, 3), [i]) for i, s in enumerate((96, 84))]
+        assert ttr._plan_packing(work, enc) == ([], work)
+    with pytest.raises(ValueError, match="unknown encoder"):
+        EncoderConfig(arch="xcit_tiny")
 
 
 def test_loss_and_grads_match_jax():
