@@ -126,11 +126,31 @@ script exits non-zero:
    labels; 2 train steps of 32 and a val pass of 32, 32 and 8) for
    ResNet-50, XCiT-S/8 and ViT-S/8: a micro-mAP in [0, 100], and for the
    ViT K1 12 and K2 12 a train step and K1 12 a val batch (phase 2 holds K1
-   and K2 against their plain version at 226 tokens, B = 32 and 8).
+   and K2 against their plain version at 226 tokens, B = 32 and 8);
+16. DINO-TP, multispectral bands, packed corpora and gradient
+   accumulation: K3 against its plain version at the TP shape (B = 8, 256
+   px, identity normalize, the flip on half the rows; phase 3's tolerance,
+   bit-identical on a repeat; timed as device time and with the host's
+   cost); ``train_dino --data_mode tp`` for 5 ViT-S/8 steps (synthetic
+   temporal images, out_dim 65536, B = 8: K1 60, K2 48 and K3 2 a step);
+   ``cli.pack_data`` on a SeCo tree of 256 px PNGs (16 locations x 3
+   timestamps) written in the phase, then 2 TP steps and 2 MC steps on the
+   packed corpus (uint8 batches); 2 MC and 2 TP steps with ``--bands B4 B3
+   B2`` on a tree of uint16 per-band TIFFs (8 locations x 2 timestamps; the
+   band reader that ran is printed); one ``dino_train_step_accum`` at A = 2
+   against one ``dino_train_step`` from the same weights and crops (bf16,
+   SGD, no DropPath, clipping or weight decay; tests/test_dino_train_step.py's
+   bounds, half the trained leaves' big-batch change ``ACCUM_MIN_REACH``
+   times them; K1 120 and K2 96 at A = 2); one bf16 step at A = 1, 2, 4 (peak memory must fall with
+   A); ``train_dino --grad_accum_steps 2`` for 2 steps each of ViT-S/8,
+   ResNet-50 (LARS, BN head) and XCiT-S/8. No view of these runs goes
+   through the plain photometric version.
 
 Then one JSON line with each kernel's launches (K1's and K4's with phase
-14's, K1's, K2's and K3's with phase 15's), error, times, bound and library time, and as the last line ``{"ok": true, "device": {...}}``. With
-no CUDA device it exits with 1 and prints no result.
+14's, K1's, K2's and K3's with phases 15 and 16's; K3's error the worse of
+phases 3 and 16), error, times, bound and library time, and as the last
+line ``{"ok": true, "device": {...}}``. With no CUDA device it exits with 1
+and prints no result.
 
 Every time in that line is device time: CUDA events around 10 calls
 (after 2 warm-up calls) queued behind a spin kernel (``torch.cuda._sleep``)
@@ -319,6 +339,24 @@ BEN_ARGS = [
     "--batch_size_per_gpu", str(BEN_B), "--print_freq", "1",
 ]
 BEN_ARCHS = [("resnet50", []), ("xcit_small_12", []), ("vit_small", ["--patch_size", "8"])]
+# phase 16: DINO-TP (K3 on two full 256 px views a step, identity normalize),
+# a packed SeCo tree of 256 px PNGs (locations x timestamps), a tree of
+# uint16 per-band TIFFs, and gradient accumulation (A = 2 against the big
+# batch at the JAX test's bounds: SGD, no DropPath, a scaled lr of 1e-3 from
+# the first step; peak memory at each A)
+TP_PHOTO_B, TP_PHOTO_S = 8, 256
+TP_LOCATIONS, TP_STAMPS = 16, 3
+BAND_LOCATIONS, BAND_STAMPS = 8, 2
+TP_BANDS = ["B4", "B3", "B2"]
+# the A = 2 against big-batch check: the update is the gradient's alone (no
+# clipping, no weight decay, the last layer trained), and at least half the
+# trained leaves move by ACCUM_MIN_REACH times the parameters' bound somewhere
+# (lr 0.064 / 256 * 8; the bf16 difference of the two steps grows with lr)
+ACCUM_SGD_ARGS = ["--optimizer", "sgd", "--drop_path_rate", "0", "--warmup_epochs", "0",
+                  "--lr", "0.064", "--clip_grad", "0", "--weight_decay", "0",
+                  "--weight_decay_end", "0", "--freeze_last_layer", "0"]
+ACCUM_MIN_REACH = 4.0
+ACCUM_RUNS = (1, 2, 4)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -567,27 +605,57 @@ def phase_photometric(torch):
     return worst, timing
 
 
-def _train_run(torch, smi, train_args, tag, steps=5):
+def _train_run(torch, smi, train_args, tag, steps=5, want=None, batch_dtype=None):
     """One ``train_dino`` run of ``steps`` steps: checks the losses, that the
-    student trained and the teacher followed by EMA, and prints the step
-    times. Returns (launches over the run, crop config, config, final
-    state, initial state)."""
+    student trained and the teacher followed by EMA, that no view went
+    through the plain photometric version, the launches against ``want``
+    and every augmentation batch's dtype against ``batch_dtype`` (each when
+    given), and prints the step times. Returns (launches over the run, crop
+    config, config, final state, initial state)."""
     from dinomc_tpu_torch.cli.train_dino import build_config, get_args_parser, train_dino
+    from dinomc_tpu_torch.ops import augment as aug
     from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.ops.hopper import augment as ha
     from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
 
+    seen, real = [], {name: getattr(aug, name) for name in ("multicrop_augment",
+                                                            "multicrop_augment_tp")}
+
+    def spy(name):
+        def call(images, *args, **kwargs):
+            seen.append((name, images.dtype, tuple(images.shape)))
+            return real[name](images, *args, **kwargs)
+        return call
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a view went through the plain photometric version on the card")
+
+    plain = ha.photometric_reference
     with tempfile.TemporaryDirectory() as out_dir:
         args = get_args_parser().parse_args(train_args + ["--output_dir", out_dir])
-        torch.cuda.reset_peak_memory_stats()
-        _build.LAUNCHES.clear()
-        t0 = time.perf_counter()
-        summary = train_dino(args)
-        wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-    print(f"[{tag}] losses {summary.losses}")
+        for name in real:
+            setattr(aug, name, spy(name))
+        ha.photometric_reference = refuse
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            summary = train_dino(args)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+        finally:
+            for name, fn in real.items():
+                setattr(aug, name, fn)
+            ha.photometric_reference = plain
+    kinds = sorted({(name, str(dt), shape) for name, dt, shape in seen})
+    print(f"[{tag}] losses {summary.losses}; batches {kinds}")
     print(f"[{tag}] launches over the run: {launches}")
     if len(summary.losses) != steps or not all(math.isfinite(x) for x in summary.losses):
         raise AssertionError(f"expected {steps} finite losses, got {summary.losses}")
+    if batch_dtype is not None and any(dt != batch_dtype for _, dt, _ in seen):
+        raise AssertionError(f"{tag}: batches {kinds}, expected {batch_dtype}")
+    if want is not None:
+        _check_launches(tag, launches, want)
 
     mc_cfg, cfg = build_config(args, 1)
     init = init_dino_train_state(cfg, args.seed, "cuda")
@@ -1777,6 +1845,239 @@ def phase_xcit(torch, smi):
     return total
 
 
+def _tp_photometric(torch):
+    """K3 at DINO-TP's shape: the pre-crop augment of two full 256 px views,
+    normalize set to identity, the flip inside. Returns (max|diff|, times)."""
+    from dinomc_tpu_torch.ops.hopper import augment as ha
+
+    B, S = TP_PHOTO_B, TP_PHOTO_S
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    imgs = torch.rand(B, 3, S, S, generator=gen, device="cuda")
+    rows = _branch_rows(torch, B, S)  # every stage on and off; the flip on rows 0, 2, 5, 7
+    ident = ((0.0,) * 3, (1.0,) * 3)
+    out = ha.photometric_kernel(imgs, rows, *ident, True)
+    again = ha.photometric_kernel(imgs, rows, *ident, True)
+    torch.cuda.synchronize()
+    ref = ha.photometric_reference(imgs, rows, *ident, True)
+    err = (out - ref).abs().max().item()
+    same = torch.equal(out, again)
+    flips = int(rows[:, ha.P_FLIP].sum().item())
+    print(f"[tp photometric] S={S} B={B} flip=True (on {flips} of {B} rows) identity normalize: "
+          f"max|diff| {err:.3e} (bound {PHOTO_ATOL})  bit-identical on a repeat: {same}")
+    if not (err <= PHOTO_ATOL and same and 0 < flips < B):
+        raise AssertionError("photometric kernel disagrees with its plain version at the TP shape")
+    blurred = int(rows[:, ha.P_BLUR].sum().item())
+    flops = S * S * (110 * blurred + 30 * (B - blurred))
+    t = {
+        "ms": _time_ms(torch, lambda: ha.photometric_kernel(imgs, rows, *ident, True)),
+        "plain_ms": _time_ms(torch, lambda: ha.photometric_reference(imgs, rows, *ident, True)),
+        # with the host's cost of issuing (two launches a call)
+        "host_ms": _host_ms(torch, lambda: ha.photometric_kernel(imgs, rows, *ident, True)),
+        "bound": _bound(2 * imgs.numel() * 4 + rows.numel() * 4, flops, F32_FLOPS),
+    }
+    print(f"[tp photometric] S={S} B={B} times: {_fmt(t)}")
+    return err, t
+
+
+def _seco_png_tree(root):
+    """TP_LOCATIONS SeCo locations of TP_STAMPS 256 px PNG timestamps each,
+    from a seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(18)
+    for loc in range(TP_LOCATIONS):
+        os.makedirs(f"{root}/{loc:04d}")
+        for s in range(TP_STAMPS):
+            img = rng.integers(0, 256, (TP_PHOTO_S, TP_PHOTO_S, 3), dtype=np.uint8)
+            Image.fromarray(img).save(f"{root}/{loc:04d}/t{s}.png")
+
+
+def _band_tif_tree(root):
+    """BAND_LOCATIONS locations of BAND_STAMPS timestamp directories, each
+    one uint16 TIFF a band (PIL ``I;16``), Sentinel-2 digital numbers
+    around the B2/B3/B4 quantiles, from a seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(19)
+    for loc in range(BAND_LOCATIONS):
+        for s in range(BAND_STAMPS):
+            d = f"{root}/{loc:04d}/t{s}"
+            os.makedirs(d)
+            for band in TP_BANDS:
+                img = Image.fromarray(
+                    rng.integers(0, 160, (TP_PHOTO_S, TP_PHOTO_S)).astype(np.uint16))
+                if img.mode != "I;16":
+                    raise AssertionError(f"PIL wrote a uint16 band as {img.mode}")
+                img.save(f"{d}/{band}.tif")
+
+
+def _accum_compare(torch, smi):
+    """One ``dino_train_step_accum`` at A = 2 against one ``dino_train_step``
+    from the same weights and crops (ViT-S/8, B = 8, SGD with no clipping
+    or weight decay, no DropPath): tests/test_dino_train_step.py::
+    test_grad_accum_matches_big_batch's bounds, with at least half the
+    trained leaves' big-batch change ``ACCUM_MIN_REACH`` times the
+    parameters' bound, so that a wrong scale of the gradients shows.
+    Returns the two steps' launches."""
+    from dinomc_tpu_torch.cli.train_dino import build_config, build_schedules, get_args_parser
+    from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.dino_trainer import (
+        dino_train_step, dino_train_step_accum, init_dino_train_state,
+    )
+
+    args = get_args_parser().parse_args(TRAIN_ARGS + ACCUM_SGD_ARGS)
+    mc_cfg, cfg = build_config(args, 1)
+    sch = build_schedules(args, args.batch_size_per_gpu, 1)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    B, S = args.batch_size_per_gpu, args.image_size
+    images = torch.rand(B, S, S, 3, generator=gen, device="cuda")
+    g, locals_ = multicrop_augment(images, draw_multicrop(gen, B, S, S, mc_cfg, device="cuda"), mc_cfg)
+    runs = {}
+    for name, step in (("big batch", lambda st: dino_train_step(st, g, locals_, sch, cfg)),
+                       ("A = 2", lambda st: dino_train_step_accum(st, g, locals_, sch, cfg, 2))):
+        state = init_dino_train_state(cfg, args.seed, "cuda")
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        loss = step(state)["loss"].item()
+        runs[name] = (state, loss, dict(_build.LAUNCHES))
+    (big, l_big, n_big), (acc, l_acc, n_acc) = runs["big batch"], runs["A = 2"]
+    init = init_dino_train_state(cfg, args.seed, "cuda")
+    worst, reach, still = 0.0, {}, []
+    for (k, a), b, p0 in zip(acc.student.named_parameters(), big.student.parameters(),
+                             init.student.parameters()):
+        bound = 2e-6 + 2e-4 * b.abs()
+        worst = max(worst, ((a - b).abs() / bound).max().item())
+        r = ((b - p0).abs() / bound).max().item()  # the big step's change over the bound
+        if r > 0:
+            reach[k] = r
+        else:
+            still.append(k)
+    least, most = min(reach, key=reach.get), max(reach, key=reach.get)
+    reached = sum(r >= ACCUM_MIN_REACH for r in reach.values())
+    center = ((acc.center - big.center).abs() / (1e-6 + 1e-5 * big.center.abs())).max().item()
+    loss_ratio = abs(l_acc - l_big) / (1e-5 + 1e-5 * abs(l_big))
+    print(f"[accum A=2 vs big batch] {cfg.compute_dtype}, SGD, no DropPath, clipping or weight "
+          f"decay, lr {float(sch.lr[0]):.3e}: loss {l_acc:.7f} / {l_big:.7f}; |diff| / bound: "
+          f"loss {loss_ratio:.3f}, centre {center:.3f}, parameters {worst:.3f} (bounds loss and "
+          f"centre rtol 1e-5, parameters rtol 2e-4 atol 2e-6)")
+    print(f"[accum A=2 vs big batch] the big step's largest change over the parameters' bound, "
+          f"leaf by leaf: {reached} of {len(reach)} trained leaves at >= {ACCUM_MIN_REACH} "
+          f"(need half); least {reach[least]:.3f} ({least}), median "
+          f"{statistics.median(reach.values()):.3f}, most {reach[most]:.3f} ({most}); "
+          f"unmoved {still}")
+    if still != ["head.last_layer.weight_g"] or 2 * reached < len(reach):
+        raise AssertionError("the big-batch step is too small to show a wrong accumulation")
+    if not (loss_ratio <= 1 and center <= 1 and worst <= 1):
+        raise AssertionError("the accumulated step disagrees with the big-batch step")
+    depth = cfg.encoder(True).vit_config().depth
+    _check_launches("accum big batch step", n_big, {"attention_fwd": 5 * depth,
+                                                    "attention_bwd": 4 * depth})
+    _check_launches("accum A=2 step", n_acc, {"attention_fwd": 2 * 5 * depth,
+                                              "attention_bwd": 2 * 4 * depth})
+    return n_big, n_acc
+
+
+def _accum_memory(torch, smi):
+    """One bf16 ViT-S/8 step at A = 1, 2 and 4 (B = 8, AdamW, DropPath
+    0.1), each from a fresh state: ms and peak memory, which must fall with
+    A. Returns the launches, summed."""
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.train.dino_trainer import dino_train_step_accum, init_dino_train_state
+
+    cfg, sch, batches = _dino_setup(torch)
+    total, peaks = {}, {}
+    for A in ACCUM_RUNS:
+        state = init_dino_train_state(cfg, 0, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = dino_train_step_accum(state, *batches[0], sch, cfg, accum=A)["loss"]
+        b.record()
+        b.synchronize()
+        peaks[A] = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(_build.LAUNCHES)
+        print(f"[accum A={A}] loss {loss.item():.6f}, step {a.elapsed_time(b):.3f} ms (the first "
+              f"of its state), peak memory {peaks[A]:.3f} GiB, launches {launches}  [{smi}]")
+        _check_launches(f"accum A={A}", launches, {"attention_fwd": A * 60, "attention_bwd": A * 48})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del state
+    if not all(peaks[x] > peaks[y] for x, y in zip(ACCUM_RUNS, ACCUM_RUNS[1:])):
+        raise AssertionError(f"peak memory does not fall with A: {peaks}")
+    return total
+
+
+def phase_tp(torch, smi):
+    """DINO-TP, multispectral bands, packed corpora and gradient
+    accumulation. Returns (K3's max|diff| and times at the TP shape, the
+    launches of the phase's main paths summed by kernel)."""
+    from dinomc_tpu_torch.cli import pack_data
+    from dinomc_tpu_torch.data import native_loader
+
+    total = {}
+
+    def add(launches):
+        for name, c in launches.items():
+            total[name] = total.get(name, 0) + c
+
+    tp_err, tp_t = _tp_photometric(torch)
+    per_step = {"attention_fwd": 60, "attention_bwd": 48}
+
+    def want(steps, photometric):
+        return {**{k: v * steps for k, v in per_step.items()}, "photometric": photometric * steps}
+
+    add(_train_run(torch, smi, TRAIN_ARGS + ["--data_mode", "tp"], "tp train", 5,
+                   want(5, 2))[0])
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        _seco_png_tree(f"{root}/seco")
+        line = pack_data.main(["--src", f"{root}/seco", "--out", f"{root}/packed",
+                               "--size", str(TP_PHOTO_S)])
+        if line["packed"] != TP_LOCATIONS * TP_STAMPS or line["groups"] != TP_LOCATIONS:
+            raise AssertionError(f"pack_data: {line}")
+        short = ["--max_steps", "2", "--data_path", f"{root}/packed"]
+        add(_train_run(torch, smi, TRAIN_ARGS + short + ["--data_mode", "tp"], "tp packed", 2,
+                       want(2, 2), torch.uint8)[0])
+        add(_train_run(torch, smi, TRAIN_ARGS + short, "mc packed", 2, want(2, 8),
+                       torch.uint8)[0])
+
+        _band_tif_tree(f"{root}/bands")
+        probe = f"{root}/bands/0000/t0/{TP_BANDS[0]}.tif"
+        try:
+            import rasterio  # noqa: F401
+            reader = "rasterio"
+        except ImportError:
+            reader = "native" if native_loader.read_band(probe) is not None else "PIL"
+        print(f"[bands] band reader: {reader} (native loader available: "
+              f"{native_loader.available()})")
+        short = ["--max_steps", "2", "--data_path", f"{root}/bands", "--bands", *TP_BANDS]
+        add(_train_run(torch, smi, TRAIN_ARGS + short, "bands mc", 2, want(2, 8),
+                       torch.float32)[0])
+        add(_train_run(torch, smi, TRAIN_ARGS + short + ["--data_mode", "tp"], "bands tp", 2,
+                       want(2, 2), torch.float32)[0])
+
+    for n in _accum_compare(torch, smi):
+        add(n)
+    add(_accum_memory(torch, smi))
+    torch.cuda.empty_cache()
+    short = ["--max_steps", "2", "--grad_accum_steps", "2"]
+    vit_accum = {k: 2 * v for k, v in want(2, 4).items()}  # K1/K2 twice a step, K3 8 a step
+    for tag, base, kernels in (("vit_small/8", TRAIN_ARGS, vit_accum),
+                               ("resnet50", RESNET_TRAIN_ARGS, {"photometric": 16}),
+                               ("xcit_small_12/8", XCIT_TRAIN_ARGS, {"photometric": 16})):
+        tag = f"{tag} accum 2 train"
+        add(_train_run(torch, smi, base + short, tag, 2, kernels)[0])
+        torch.cuda.empty_cache()
+    return tp_err, tp_t, total
+
+
 def main() -> int:
     import torch
 
@@ -1799,6 +2100,7 @@ def main() -> int:
     full_res_launches = phase_full_res(torch, smi)
     phase_oscd(torch, smi)
     xcit_launches = phase_xcit(torch, smi)
+    tp_err, tp_photo_t, tp_launches = phase_tp(torch, smi)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -1810,9 +2112,9 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
-    def with_cls(counts, name):  # a main path's launches, phases 12, 14 and 15's counted in
+    def with_cls(counts, name):  # a main path's launches, phases 12, 14-16's counted in
         return (counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
-                + xcit_launches.get(name, 0))
+                + xcit_launches.get(name, 0) + tp_launches.get(name, 0))
 
     kernels = [
         entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
@@ -1823,8 +2125,8 @@ def main() -> int:
               attn_t["bwd_plain_ms"], attn_t["bwd_bound"], attn_t["bwd_library_ms"]),
         entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
               launches.get("photometric", 0) + convnet_launches.get("photometric", 0)
-              + xcit_launches.get("photometric", 0), photo_err, photo_t["ms"], photo_t["plain_ms"],
-              photo_t["bound"], None),
+              + xcit_launches.get("photometric", 0) + tp_launches.get("photometric", 0),
+              max(photo_err, tp_err), photo_t["ms"], photo_t["plain_ms"], photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),
                             ("long_attention_dkv", 187, "dkv")):

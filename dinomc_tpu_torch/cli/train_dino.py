@@ -1,18 +1,25 @@
-"""DINO-MC self-supervised pretraining entry point (PyTorch).
+"""DINO-MC / DINO-TP self-supervised pretraining entry point (PyTorch).
 
 Counterpart of ``dinomc_tpu/cli/train_dino.py``; parity target
 ``main_dino_mc.py`` (flags ``:46-151``, flow ``:154-416``). The flags are the
 JAX CLI's plus ``--device``. Per step: draw and apply the on-device
-multi-crop augmentation (``ops/augment.py``), then ``dino_train_step``.
+multi-crop augmentation (``ops/augment.py``: ``multicrop_augment``, or
+``multicrop_augment_tp`` under ``--data_mode tp``), then
+``dino_train_step_accum`` over ``--grad_accum_steps`` microbatches (one is
+``dino_train_step``, bit for bit).
 Checkpoints are ``torch.save`` files with restart-from-latest
 (``ckpt/checkpoint.py``); rerunning with the same ``--output_dir`` resumes.
 
 Run ``python -m dinomc_tpu_torch.cli.train_dino --help``; ``--data_path
-synthetic`` needs no dataset. Every ``--arch`` of the JAX CLI runs, XCiT
+synthetic`` needs no dataset; ``--data_path`` also takes a SeCo-style tree
+(a directory a location), a flat image folder or a packed corpus
+(``cli/pack_data.py``). Every ``--arch`` of the JAX CLI runs, XCiT
 (``xcit_small_12``, ``xcit_medium_24``) at the default ``--patch_size 8``
-too, under its own remat (``--remat_policy`` is the ViT's). Not ported yet, and refused with a pointer to
-ROADMAP.md: ``--data_mode tp``, ``--model_parallel``, ``--fsdp``,
-``--grad_accum_steps > 1`` and ``--bands``.
+too, under its own remat (``--remat_policy`` is the ViT's). ``--data_mode
+tp`` (DINO-TP: three timestamps a location, three global crops) runs from
+synthetic data, image trees and packed corpora; ``--bands B4 B3 B2`` reads
+multispectral Sentinel-2 bands. Not ported yet, and refused with a pointer
+to ROADMAP.md: ``--model_parallel`` and ``--fsdp`` (multi-device).
 """
 
 from __future__ import annotations
@@ -72,7 +79,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                         "or 'synthetic' for a smoke run")
     p.add_argument("--image_size", default=256, type=int,
                    help="host-side decode/resize resolution before device aug")
-    p.add_argument("--bands", default=None, type=str, nargs="+")
+    p.add_argument("--bands", default=None, type=str, nargs="+",
+                   help="multispectral pretraining: exactly 3 Sentinel-2 band names "
+                        "(e.g. --bands B4 B3 B2) read from multi-band tifs or per-band "
+                        "{B}.tif directories, quantile-normalized; default plain RGB")
     p.add_argument("--output_dir", default="output_dir", type=str)
     p.add_argument("--saveckp_freq", default=20, type=int)
     p.add_argument("--seed", default=0, type=int)
@@ -82,7 +92,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="stop after N optimizer steps (0 = full run)")
     p.add_argument("--model_parallel", default=1, type=int)
     p.add_argument("--fsdp", default=False, type=bool_flag)
-    p.add_argument("--grad_accum_steps", default=1, type=int)
+    p.add_argument("--grad_accum_steps", default=1, type=int,
+                   help="split each batch into N sequential microbatches and apply one "
+                        "optimizer step on the averaged gradients; batch_size_per_gpu "
+                        "must be divisible by N")
     p.add_argument("--remat_policy", default="attn", type=str,
                    choices=sorted(REMAT_POLICIES),
                    help="ViT selective rematerialization: which block "
@@ -95,12 +108,8 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.data_mode == "tp", "--data_mode tp", "queue 1 #10 (multicrop_augment_tp)"),
         (args.model_parallel > 1, "--model_parallel", "queue 1 #17 (multi-device)"),
         (args.fsdp, "--fsdp", "queue 1 #17 (multi-device)"),
-        (args.grad_accum_steps > 1, "--grad_accum_steps > 1",
-         "queue 1 #7 (dino_train_step_accum)"),
-        (args.bands is not None, "--bands", "queue 1 #10 (multispectral host path)"),
     ]
     for hit, flag, item in unported:
         if hit:
@@ -108,29 +117,48 @@ def _refuse_unported(args) -> None:
 
 
 class _SyntheticImages:
-    """Random-image dataset for smoke runs (no datasets needed)."""
+    """Random-image dataset for smoke runs (no datasets needed): (S, S, 3)
+    items, or (4, S, S, 3) ``temporal`` ones."""
 
-    def __init__(self, n: int, size: int):
-        self.n, self.size = n, size
+    def __init__(self, n: int, size: int, temporal: bool):
+        self.n, self.size, self.temporal = n, size, temporal
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
-        return np.random.RandomState(i).rand(self.size, self.size, 3).astype(np.float32)
+        rng = np.random.RandomState(i)
+        if self.temporal:
+            return rng.rand(4, self.size, self.size, 3).astype(np.float32)
+        return rng.rand(self.size, self.size, 3).astype(np.float32)
 
 
 def _dataset(args):
+    """The JAX CLI's routing (``dinomc_tpu/cli/train_dino.py:187-211``):
+    synthetic; a packed corpus; ``MCTemporal`` for tp; ``MCBase``, then a
+    flat image folder."""
     from dinomc_tpu_torch.data import packed
-    from dinomc_tpu_torch.data.seco import FlatImageFolder, MCBase
+    from dinomc_tpu_torch.data.seco import FlatImageFolder, MCBase, MCTemporal
 
+    temporal = args.data_mode == "tp"
+    bands = args.bands
+    if bands is not None:
+        assert len(bands) == 3, (
+            f"--bands takes exactly 3 band names (got {bands}): the "
+            "augmentation chain (color jitter/grayscale/solarize) is "
+            "defined on 3 channels, as the reference's RGB transforms are"
+        )
     if args.data_path == "synthetic":
-        return _SyntheticImages(max(args.batch_size_per_gpu * 4, 64), args.image_size)
+        return _SyntheticImages(max(args.batch_size_per_gpu * 4, 64), args.image_size, temporal)
     if packed.is_packed(args.data_path):
         # decode-once shards: uint8 across PCIe, f32/255 on the device
+        if temporal:
+            return packed.PackedMCTemporal(args.data_path, seed=args.seed)
         return packed.PackedMC(args.data_path, seed=args.seed)
+    if temporal:
+        return MCTemporal(args.data_path, image_size=args.image_size, bands=bands)
     try:
-        dataset = MCBase(args.data_path, image_size=args.image_size)
+        dataset = MCBase(args.data_path, image_size=args.image_size, bands=bands)
         if len(dataset) == 0:
             raise FileNotFoundError(args.data_path)
         return dataset
@@ -210,8 +238,12 @@ def train_dino(args) -> TrainSummary:
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
     from dinomc_tpu_torch.cli.common import StepLog, set_seed
     from dinomc_tpu_torch.data.loader import PrefetchLoader, ShardedSampler
-    from dinomc_tpu_torch.ops.augment import draw_multicrop, multicrop_augment
-    from dinomc_tpu_torch.train.dino_trainer import dino_train_step, init_dino_train_state
+    from dinomc_tpu_torch.ops.augment import (
+        draw_multicrop, draw_multicrop_tp, multicrop_augment, multicrop_augment_tp,
+    )
+    from dinomc_tpu_torch.train.dino_trainer import (
+        dino_train_step_accum, init_dino_train_state,
+    )
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 
     _refuse_unported(args)
@@ -219,6 +251,11 @@ def train_dino(args) -> TrainSummary:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")
     set_seed(args.seed)
+    temporal = args.data_mode == "tp"
+    accum = max(1, args.grad_accum_steps)
+    assert args.batch_size_per_gpu % accum == 0, (
+        f"grad_accum_steps={accum} must divide batch_size_per_gpu={args.batch_size_per_gpu}"
+    )
 
     dataset = _dataset(args)
     global_batch = args.batch_size_per_gpu
@@ -253,10 +290,14 @@ def train_dino(args) -> TrainSummary:
             metric_logger.log_every(loader, args.print_freq, f"Epoch [{epoch}]")
         ):
             start = steps.begin()
-            B, H, W = batch.shape[:3]
-            draws = draw_multicrop(aug_gen, B, H, W, mc_cfg, device=device)
-            g, locals_ = multicrop_augment(batch, draws, mc_cfg)
-            metrics = dino_train_step(state, g, locals_, sch, cfg)
+            B, (H, W) = batch.shape[0], batch.shape[-3:-1]
+            if temporal:  # (B, 4, H, W, 3)
+                draws = draw_multicrop_tp(aug_gen, B, H, W, mc_cfg, device=device)
+                g, locals_ = multicrop_augment_tp(batch, draws, mc_cfg, batch_first=True)
+            else:
+                draws = draw_multicrop(aug_gen, B, H, W, mc_cfg, device=device)
+                g, locals_ = multicrop_augment(batch, draws, mc_cfg)
+            metrics = dino_train_step_accum(state, g, locals_, sch, cfg, accum=accum)
             steps.end(metrics["loss"], start)
             if it % args.print_freq == 0:
                 last_loss = float(metrics["loss"])  # host sync

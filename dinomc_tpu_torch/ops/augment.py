@@ -18,7 +18,11 @@ transform (``data/seg_datasets.augment_batch``), with their draws apart
 ``resized_crop`` (scale (0.08, 1.0)), ``random_hflip`` and ``normalize``;
 it runs no photometric kernel, as in the JAX package. ``resize`` is
 ``jax.image.resize`` (bilinear and bicubic antialiased, and nearest).
-``multicrop_augment_tp`` (DINO-TP) is not ported yet (ROADMAP.md, queue 1 #10).
+
+DINO-TP (``multicrop_augment_tp`` on ``draw_multicrop_tp``'s draws): the
+photometric chain runs before the crops, on two of the full-size temporal
+views, through K3 with the normalize set to identity; then three bicubic
+global crops and the locals of the raw first view, each normalized.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ __all__ = [
     "draw_crop_boxes", "draw_multicrop", "resize_weights",
     "random_resized_crop", "resized_crop", "resize", "draw_hflip", "random_hflip",
     "EUROSAT_SCALE", "draw_eurosat_view", "eurosat_train_view",
-    "multicrop_augment", "JitterDraw",
+    "multicrop_augment", "TPDraw", "draw_multicrop_tp", "multicrop_augment_tp", "JitterDraw",
     "draw_color_jitter", "color_jitter", "normalize",
 ]
 
@@ -284,6 +288,79 @@ def multicrop_augment(
 
 
 @dataclasses.dataclass
+class TPDraw:
+    """Random draws of one DINO-TP batch: the (B, 4) boxes of the three
+    global crops and of each local crop, and the (B, 24) photometric rows
+    of the two augmented views (global views 0 and 2)."""
+
+    global_boxes: List[torch.Tensor]
+    photo: List[torch.Tensor]
+    local_boxes: List[torch.Tensor]
+
+
+# MCTemporal's class-level augment (dino_dataset.py:97-104): jitter
+# (0.4, 0.4, 0.4, 0.1) at p 0.8, grayscale at 0.2, blur at 0.5, flip at 0.5
+TP_JITTER = (0.4, 0.4, 0.4, 0.1)
+IDENTITY_MEAN, IDENTITY_STD = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+
+
+def draw_multicrop_tp(
+    gen: torch.Generator, B: int, H: int, W: int, cfg: MultiCropConfig, device=None,
+) -> TPDraw:
+    """Draws for ``multicrop_augment_tp``: three global boxes at
+    ``global_scale``, the rows of the two pre-crop augments, one box a local
+    crop at ``local_scale``."""
+    return TPDraw(
+        global_boxes=[draw_crop_boxes(gen, B, H, W, cfg.global_scale, device=device)
+                      for _ in range(3)],
+        photo=[draw_photometric_params(gen, B, TP_JITTER, p_jit=0.8, p_gray=0.2, p_blur=0.5,
+                                       p_sol=0.0, device=device) for _ in range(2)],
+        local_boxes=[draw_crop_boxes(gen, B, H, W, cfg.local_scale, device=device)
+                     for _ in cfg.local_sizes],
+    )
+
+
+def multicrop_augment_tp(
+    images: torch.Tensor, draws: TPDraw, cfg: MultiCropConfig = MultiCropConfig(),
+    batch_first: bool = True,
+):
+    """DINO-TP: images (B, 4, H, W, 3) = [t0, t1, t2, t0] a sample (the
+    loader's layout; (4, B, H, W, 3) with ``batch_first=False``), uint8 or
+    f32 in [0, 1], -> (globals (3, B, S, S, 3), tuple of locals (B, s, s,
+    3)), f32 on the images' device, as JAX ``multicrop_augment_tp``
+    (``dino_dataset.py:114-128``, ``dino_augmentation.py:70-103``).
+
+    The global views are [aug(t1), t2, aug(t0)], each a bicubic
+    RandomResizedCrop at ``global_scale`` then normalized, with no
+    photometric after the crop; the locals are bicubic crops of the raw t0.
+    ``aug`` is K3 on the full view (``fused_photometric`` with the flip
+    inside and an identity normalize; square views). K3 flips first where
+    the JAX chain flips last; the two orders give the same image: jitter
+    and grayscale are pointwise, the mean gray of the contrast stage does
+    not see a mirror, and the 13 blur taps are symmetric under replicate
+    padding. The JAX package leaves this chain unfused for reasons of the
+    TPU's (its kernel's VMEM residency at 256 px, v5e timings); K3 tiles
+    32 x 32 at any size."""
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    if batch_first:
+        images = images.transpose(0, 1)
+    planar = images.permute(0, 1, 4, 2, 3)  # (4, B, 3, H, W)
+    views = [
+        fused_photometric(planar[1], draws.photo[0], IDENTITY_MEAN, IDENTITY_STD, flip=True),
+        planar[2],
+        fused_photometric(planar[3], draws.photo[1], IDENTITY_MEAN, IDENTITY_STD, flip=True),
+    ]
+    g = [normalize(random_resized_crop(v, boxes, cfg.global_size, "bicubic").permute(0, 2, 3, 1))
+         for v, boxes in zip(views, draws.global_boxes)]
+    locals_ = tuple(
+        normalize(random_resized_crop(planar[0], boxes, s, "bicubic").permute(0, 2, 3, 1))
+        for boxes, s in zip(draws.local_boxes, cfg.local_sizes)
+    )
+    return torch.stack(g, dim=0), locals_
+
+
+@dataclasses.dataclass
 class JitterDraw:
     """Per-sample ColorJitter draws, each (B,): brightness, contrast and
     saturation factors, and hue shift."""
@@ -335,7 +412,10 @@ def normalize(
     images: torch.Tensor, mean: Sequence[float] = IMAGENET_MEAN,
     std: Sequence[float] = IMAGENET_STD,
 ) -> torch.Tensor:
-    """(x - mean) / std over the last (channel) axis."""
-    m = torch.tensor(mean, dtype=torch.float32).to(images.device, non_blocking=True)
-    s = torch.tensor(std, dtype=torch.float32).to(images.device, non_blocking=True)
-    return (images - m) / s
+    """(x - mean) / std over the last (channel) axis, f32 out in the
+    images' memory layout, with per-channel scalars: no host-to-device copy,
+    which would sync the stream."""
+    out = torch.empty_like(images, dtype=torch.float32)
+    for c, (m, s) in enumerate(zip(mean, std)):
+        torch.div(images[..., c] - m, s, out=out[..., c])
+    return out

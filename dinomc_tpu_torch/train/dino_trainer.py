@@ -24,8 +24,14 @@ the head's normalization, the logits, the loss and the centre stay f32, and
 TF32 is switched off for f32 matmuls and convolutions
 (``set_matmul_precision``).
 
-Not ported yet: ``dino_train_step_accum`` and ``bucket_merge`` (ROADMAP.md
-queue 1 #7).
+``dino_train_step_accum`` takes one optimizer step from ``accum``
+microbatches (rows ``a::accum`` each): the teacher under ``no_grad`` and the
+student's forward and backward a microbatch at a time, each graph freed
+before the next, the gradients summed and divided by ``accum``, every
+microbatch's loss against the pre-step centre, one centre EMA from the mean
+of the microbatches' teacher centres, then one ``_finish_step``.
+
+Not ported yet: ``bucket_merge`` (ROADMAP.md queue 1 #7).
 """
 
 from __future__ import annotations
@@ -251,6 +257,24 @@ def _forward_crops(
     return logits.reshape(len(feats), B, -1)
 
 
+def _loss_and_grads(state, global_crops, local_crops, teacher_temp, generator, cfg):
+    """One teacher + student forward over a batch, the DINO loss against
+    the state's centre, and the student's gradients (the graph is freed by
+    ``autograd.grad``). Returns (loss, grads in ``named_parameters`` order,
+    new centre, teacher logits)."""
+    enc_s, enc_t = cfg.encoder(student=True), cfg.encoder(student=False)
+    with torch.no_grad():
+        teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, enc_t.has_bn,
+                                        None)
+    student_logits = _forward_crops(state.student, global_crops, local_crops, enc_s, True, generator)
+    loss, new_center = dino_loss(
+        student_logits, teacher_logits, state.center, teacher_temp,
+        cfg.student_temp, cfg.center_momentum,
+    )
+    grads = torch.autograd.grad(loss, list(state.student.parameters()))
+    return loss.detach(), grads, new_center, teacher_logits
+
+
 def dino_loss_and_grads(
     state: DinoTrainState,
     global_crops: torch.Tensor,
@@ -264,18 +288,10 @@ def dino_loss_and_grads(
     state and centre are left as they are; a convnet's forwards move the
     teacher's and the student's BatchNorm running statistics, as the JAX
     function's returned states do."""
-    enc_s, enc_t = cfg.encoder(student=True), cfg.encoder(student=False)
-    with torch.no_grad():
-        teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, enc_t.has_bn,
-                                        None)
-    student_logits = _forward_crops(state.student, global_crops, local_crops, enc_s, True, generator)
-    loss, new_center = dino_loss(
-        student_logits, teacher_logits, state.center, teacher_temp,
-        cfg.student_temp, cfg.center_momentum,
-    )
-    params = dict(state.student.named_parameters())
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), dict(zip(params, grads)), new_center
+    loss, grads, new_center, _ = _loss_and_grads(
+        state, global_crops, local_crops, teacher_temp, generator, cfg)
+    names = [n for n, _ in state.student.named_parameters()]
+    return loss, dict(zip(names, grads)), new_center
 
 
 def dino_train_step(
@@ -295,6 +311,61 @@ def dino_train_step(
     )
     return _finish_step(
         state, grads, loss, new_center, float(schedules.lr[step]),
+        float(schedules.wd[step]), float(schedules.teacher_momentum[step]), epoch, cfg,
+    )
+
+
+def dino_train_step_accum(
+    state: DinoTrainState,
+    global_crops: torch.Tensor,  # (G, B, S, S, 3); B = accum * b
+    local_crops: Tuple[torch.Tensor, ...],  # each (B, s, s, 3)
+    schedules: DinoSchedules,
+    cfg: DinoConfig,
+    accum: int = 1,
+) -> Dict:
+    """Gradient accumulation: one optimizer step from ``accum`` microbatches
+    of the same full-batch crops ``dino_train_step`` takes (JAX
+    ``dino_train_step_accum``). Microbatch ``a`` takes rows ``a::accum``, the
+    JAX package's strided split. Every microbatch's loss uses the pre-step
+    centre; gradients are summed and divided by ``accum``, the loss
+    averaged; the centre takes one EMA step from the mean of the
+    microbatches' teacher centres; then clipping, the optimizer and the
+    teacher EMA run once. Each microbatch's graph is freed before the next
+    (``autograd.grad``), so the activations at the peak are one
+    microbatch's. A convnet's BatchNorm statistics move a microbatch at a
+    time (teacher, then student, microbatch by microbatch, as the JAX scan
+    threads them); XCiT's LPI BatchNorm sees each microbatch as its batch;
+    DropPath draws come from ``state.generator`` in microbatch order."""
+    A = accum
+    B = global_crops.shape[1]
+    if B % A:
+        raise ValueError(f"accum={A} must divide batch {B}")
+    step = state.step
+    epoch = step // cfg.niter_per_ep
+    teacher_temp = float(schedules.teacher_temp[epoch])
+    grads_acc = loss_acc = bc_acc = None
+    for a in range(A):
+        loss, grads, _, teacher_logits = _loss_and_grads(
+            state, global_crops[:, a::A], tuple(x[a::A] for x in local_crops), teacher_temp,
+            state.generator, cfg)
+        bc = teacher_logits.reshape(-1, teacher_logits.shape[-1]).mean(dim=0)
+        if grads_acc is None:
+            grads_acc, loss_acc, bc_acc = list(grads), loss, bc
+        else:
+            for acc, g in zip(grads_acc, grads):
+                acc.add_(g)
+            loss_acc, bc_acc = loss_acc + loss, bc_acc + bc
+        del loss, grads, teacher_logits
+    inv_a = 1.0 / A
+    if A > 1:
+        for g in grads_acc:
+            g.mul_(inv_a)
+    names = [n for n, _ in state.student.named_parameters()]
+    grads = dict(zip(names, grads_acc))
+    m = cfg.center_momentum
+    new_center = state.center * m + (bc_acc * inv_a) * (1.0 - m)
+    return _finish_step(
+        state, grads, loss_acc * inv_a, new_center, float(schedules.lr[step]),
         float(schedules.wd[step]), float(schedules.teacher_momentum[step]), epoch, cfg,
     )
 

@@ -4,8 +4,10 @@ the JAX package, and the rule that the port imports nothing of it.
 The port keeps numpy/PyTorch copies of what it took from jax-free modules
 of ``dinomc_tpu``: the state-dict exporters (``ckpt/state_dicts.py``), the
 reference-checkpoint import (``ckpt/torch_import.py``), the CSV and W&B
-loggers, the pretraining host readers (``data/{seco,packed,
-native_loader}.py``), the synthetic texture worlds and Voronoi scenes
+loggers, the pretraining host readers and the packed-corpus writer
+(``data/{seco,packed,native_loader}.py``, ``cli/pack_data.py``; the band
+readers, ``MCTemporal``, the writer and the temporal packed readers are
+held in tests/test_torch_pack_bands.py), the synthetic texture worlds and Voronoi scenes
 (``utils/synthetic.py``), the numpy half of ``eval/retrieval.py``, the
 BigEarthNet-19 nomenclature and LMDB reader of
 ``data/classification.py`` and ``data/loader.random_subset``. The same
@@ -148,6 +150,21 @@ def seco_tree(tmp_path):
             img = rng.integers(0, 256, (30 + loc, 40 - loc, 3), dtype=np.uint8)
             Image.fromarray(img).save(d / f"t{j}{ext}")
     return root
+
+
+def test_native_batch_decoder_is_the_original(seco_tree):
+    """``decode_batch`` over every file of the tree at one size, and its
+    ``None`` when a file does not decode, as the original's."""
+    if not tnative.available():
+        pytest.skip("the native image loader is not built here")
+    files = sorted(str(p) for p in seco_tree.rglob("*.*"))
+    ours, ref = tnative.decode_batch(files, 20, 16, 2), jnative.decode_batch(files, 20, 16, 2)
+    assert ours.dtype == ref.dtype == np.uint8 and ours.shape == (len(files), 20, 16, 3)
+    np.testing.assert_array_equal(ours, ref)
+    for f, img in zip(files, ours):
+        np.testing.assert_array_equal(img, tnative.decode(f, 20, 16))
+    bad = files + [str(seco_tree / "missing.png")]
+    assert tnative.decode_batch(bad, 20, 16) is None and jnative.decode_batch(bad, 20, 16) is None
 
 
 def test_host_readers_decode_what_the_originals_decode(seco_tree, tmp_path):
@@ -300,6 +317,7 @@ def test_port_never_imports_the_jax_package():
     assert {f"dinomc_tpu_torch/cli/{m}.py" for m in ("predict", "evaluate_stitched", "oscd",
                                                       "bigearthnet")} <= names
     assert "dinomc_tpu_torch/models/xcit.py" in names
+    assert "dinomc_tpu_torch/cli/pack_data.py" in names
     found = {str(f.relative_to(REPO)): hits for f in files if (hits := _imports_of_the_jax_package(f))}
     assert not found, found
 
