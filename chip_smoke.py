@@ -144,11 +144,28 @@ script exits non-zero:
    times them; K1 120 and K2 96 at A = 2); one bf16 step at A = 1, 2, 4 (peak memory must fall with
    A); ``train_dino --grad_accum_steps 2`` for 2 steps each of ViT-S/8,
    ResNet-50 (LARS, BN head) and XCiT-S/8. No view of these runs goes
-   through the plain photometric version.
+   through the plain photometric version;
+17. the attention video, checkpoints, serving and profiling:
+   ``cli.attention_video`` on 16 texture frames of 224 px in batches of 8
+   (ViT-S/8, random weights; K1 for the first 11 blocks of each batch, the
+   last block dense), and ``vit_last_selfattention`` in bf16 against its
+   run with the plain attention (phase 2's forward tolerance);
+   ``cli.convert_ckpt`` on the checkpoints of phases 4, 6, 12 and 13, each
+   file read back by ``ckpt/torch_import`` into a fresh module whose
+   features or logits must be bit-equal to those of the state converted;
+   ``scripts/oscd_learning_torch.py`` at smoke size with 20 pretraining
+   steps (pretrain -> convert -> both OSCD legs; K3 4 a step);
+   ``ckpt/export`` of ViT-S/8 UPerNet at 224 and 512 px and of the Swin-T
+   classifier, each saved, loaded and called at B = 2: the graph holds the
+   one ``dinomc_torch::`` op of its kernel (K1, K4, K7), which launches 12
+   times, and the output is held against the eager model's; K1's host cost
+   through its custom op and through its launcher; ``utils/profiling.trace``
+   around one DINO step, whose trace names ``attn_fwd_kernel`` once a K1
+   launch.
 
 Then one JSON line with each kernel's launches (K1's and K4's with phase
-14's, K1's, K2's and K3's with phases 15 and 16's; K3's error the worse of
-phases 3 and 16), error, times, bound and library time, and as the last
+14's, K1's, K2's and K3's with phases 15 and 16's, K1-K4's and K7's with
+phase 17's; K3's error the worse of phases 3 and 16), error, times, bound and library time, and as the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device it exits with 1
 and prints no result.
 
@@ -176,6 +193,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -348,6 +366,21 @@ TP_PHOTO_B, TP_PHOTO_S = 8, 256
 TP_LOCATIONS, TP_STAMPS = 16, 3
 BAND_LOCATIONS, BAND_STAMPS = 8, 2
 TP_BANDS = ["B4", "B3", "B2"]
+# phase 17: the attention video (16 frames of 224 px textures in batches of
+# 8: K1 for the first 11 of 12 blocks a batch), the checkpoint converter on
+# the checkpoints of phases 4, 6, 12 and 13, the OSCD learning run's wiring
+# (20 ResNet-50 pretraining steps at B = 32, 2 globals and 2 locals a step
+# through K3), exported seg and classifier programs at B = 2, and a traced
+# DINO step
+VIDEO_FRAMES, VIDEO_BATCH, VIDEO_SIZE = 16, 8, 224
+OSCD_LEARNING_ARGS = ["--cities", "2", "--val_cities", "1", "--epochs", "2",
+                      "--pretrain_steps", "20", "--smoke"]
+OSCD_LEARNING_K3 = 4 * 20
+EXPORT_B = 2
+# an exported program against the eager model on the same input: the same
+# kernels and ATen ops run, so the two are expected bit-equal; the bound
+# allows one bf16 rounding (2^-8) of the largest output where they are not
+EXPORT_RTOL = 2.0 ** -8
 # the A = 2 against big-batch check: the update is the gradient's alone (no
 # clipping, no weight decay, the last layer trained), and at least half the
 # trained leaves move by ACCUM_MIN_REACH times the parameters' bound somewhere
@@ -605,13 +638,14 @@ def phase_photometric(torch):
     return worst, timing
 
 
-def _train_run(torch, smi, train_args, tag, steps=5, want=None, batch_dtype=None):
+def _train_run(torch, smi, train_args, tag, steps=5, want=None, batch_dtype=None, keep=None):
     """One ``train_dino`` run of ``steps`` steps: checks the losses, that the
     student trained and the teacher followed by EMA, that no view went
     through the plain photometric version, the launches against ``want``
     and every augmentation batch's dtype against ``batch_dtype`` (each when
-    given), and prints the step times. Returns (launches over the run, crop
-    config, config, final state, initial state)."""
+    given), and prints the step times; ``keep``: a directory the run's
+    checkpoints are copied to (phase 17 converts them). Returns (launches
+    over the run, crop config, config, final state, initial state)."""
     from dinomc_tpu_torch.cli.train_dino import build_config, get_args_parser, train_dino
     from dinomc_tpu_torch.ops import augment as aug
     from dinomc_tpu_torch.ops.hopper import _build
@@ -643,6 +677,8 @@ def _train_run(torch, smi, train_args, tag, steps=5, want=None, batch_dtype=None
             summary = train_dino(args)
             wall = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
+            if keep:
+                shutil.copytree(f"{out_dir}/checkpoints", keep)
         finally:
             for name, fn in real.items():
                 setattr(aug, name, fn)
@@ -681,8 +717,8 @@ def _train_run(torch, smi, train_args, tag, steps=5, want=None, batch_dtype=None
     return launches, mc_cfg, cfg, st, init
 
 
-def phase_train(torch, smi):
-    launches = _train_run(torch, smi, TRAIN_ARGS, "train")[0]
+def phase_train(torch, smi, keep):
+    launches = _train_run(torch, smi, TRAIN_ARGS, "train", keep=f"{keep}/vit_dino")[0]
     for name in ("attention_fwd", "attention_bwd", "photometric"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -759,8 +795,9 @@ def phase_long_attention(torch):
     return worst, timing
 
 
-def _seg_run(torch, train_backbone: bool, smi):
-    """One ``train_seg`` run; returns (summary, launches over the run)."""
+def _seg_run(torch, train_backbone: bool, smi, keep=None):
+    """One ``train_seg`` run; returns (summary, launches over the run).
+    ``keep``: a directory its checkpoints are copied to."""
     from dinomc_tpu_torch.cli.train_seg import get_args_parser, train_seg
     from dinomc_tpu_torch.ops.hopper import _build
 
@@ -774,6 +811,8 @@ def _seg_run(torch, train_backbone: bool, smi):
         summary = train_seg(args)
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        if keep:
+            shutil.copytree(f"{out_dir}/checkpoints", keep)
     med = sorted(summary.step_ms)[len(summary.step_ms) // 2]
     print(f"[seg train_backbone={flag}] losses {summary.losses}")
     print(f"[seg train_backbone={flag}] launches over the run: {launches}")
@@ -785,7 +824,7 @@ def _seg_run(torch, train_backbone: bool, smi):
     return summary, launches
 
 
-def phase_seg(torch, smi):
+def phase_seg(torch, smi, keep):
     from dinomc_tpu_torch.cli.train_seg import get_args_parser
     from dinomc_tpu_torch.data.seg_datasets import SPECS
     from dinomc_tpu_torch.models.upernet import UPerNetConfig
@@ -793,7 +832,8 @@ def phase_seg(torch, smi):
 
     total = {}
     for train_backbone in (False, True):
-        summary, launches = _seg_run(torch, train_backbone, smi)
+        summary, launches = _seg_run(torch, train_backbone, smi,
+                                     f"{keep}/seg" if train_backbone else None)
         if len(summary.losses) != SEG_STEPS or not all(math.isfinite(x) for x in summary.losses):
             raise AssertionError(f"expected {SEG_STEPS} finite losses, got {summary.losses}")
         if not 0.0 <= summary.scores["miou"] <= 1.0:
@@ -1238,9 +1278,10 @@ def _check_launches(tag, launches, want):
         raise AssertionError(f"{tag}: launches {launches}, the configuration implies {want}")
 
 
-def phase_cls(torch, smi):
+def phase_cls(torch, smi, keep):
     """Classification fine-tune and frozen-feature evaluation. Returns the
-    launches of the phase's main paths, summed by kernel."""
+    launches of the phase's main paths, summed by kernel; the EuroSAT CLI's
+    checkpoints are copied under ``keep``."""
     import dataclasses
 
     import numpy as np
@@ -1358,6 +1399,7 @@ def phase_cls(torch, smi):
             args = eurosat.get_args_parser().parse_args(
                 CLS_CLI_ARGS + ["--output_dir", out_dir] + extra)
             results[mode] = eurosat.run(args)
+        shutil.copytree(f"{out_dir}/checkpoints", f"{keep}/eurosat_vit")
     print(f"[eurosat cli] {results}")
     if not all(0.0 <= v <= 100.0 for v in results.values()):
         raise AssertionError(f"eurosat CLI results outside [0, 100]: {results}")
@@ -1396,12 +1438,13 @@ def phase_cls(torch, smi):
     return total
 
 
-def _convnet_train(torch, smi, arch, steps):
+def _convnet_train(torch, smi, arch, steps, keep=None):
     """``steps`` DINO steps of ``arch`` through ``train_dino`` with LARS and
     BN in the head; checks K3's launches, the convolutions, and both
     BatchNorm states. Returns the launches over the run."""
     args = RESNET_TRAIN_ARGS + ["--arch", arch, "--max_steps", str(steps)]
-    launches, mc_cfg, cfg, st, init = _train_run(torch, smi, args, f"{arch} train", steps)
+    launches, mc_cfg, cfg, st, init = _train_run(torch, smi, args, f"{arch} train", steps,
+                                                 keep=keep)
     _check_launches(f"{arch} train", launches, {"photometric": steps * (2 + len(mc_cfg.local_sizes))})
     convs = max((st.student.state_dict()[k] - v).abs().max().item()
                 for k, v in init.student.state_dict().items() if ".conv" in k)
@@ -1422,16 +1465,17 @@ def _convnet_train(torch, smi, arch, steps):
     return launches
 
 
-def phase_convnets(torch, smi):
+def phase_convnets(torch, smi, keep):
     """The ResNets: DINO-MC pretraining, the EuroSAT CLI and fine-tune steps.
-    Returns the launches of the phase's main paths, summed by kernel."""
+    Returns the launches of the phase's main paths, summed by kernel; the
+    ResNet-50 run's checkpoints are copied under ``keep``."""
     import dataclasses
 
     from dinomc_tpu_torch.cli import eurosat
     from dinomc_tpu_torch.ops.hopper import _build
     from dinomc_tpu_torch.train.cls_trainer import ClsConfig, init_cls_train_state
 
-    total = dict(_convnet_train(torch, smi, "resnet50", 5))
+    total = dict(_convnet_train(torch, smi, "resnet50", 5, f"{keep}/resnet50_dino"))
     for name, c in _convnet_train(torch, smi, "wide_resnet50_2", WRN_STEPS).items():
         total[name] = total.get(name, 0) + c
     torch.cuda.empty_cache()
@@ -2078,6 +2122,294 @@ def phase_tp(torch, smi):
     return tp_err, tp_t, total
 
 
+def _video_batch(count, seed):
+    """``count`` colorized 224 px textures, (count, S, S, 3) in [0, 1]."""
+    import numpy as np
+
+    from dinomc_tpu_torch.utils.synthetic import TEXTURES, colorize
+
+    rng = np.random.RandomState(seed)
+    return np.stack([colorize(TEXTURES["v1"](i % 8, VIDEO_SIZE, rng), rng)
+                     for i in range(count)]).astype(np.float32)
+
+
+def _p17_video(torch, smi):
+    """(a) ``cli.attention_video`` on a folder of frames, then the map on the
+    card against its run with the plain attention. Returns the launches."""
+    import numpy as np
+    from PIL import Image
+
+    from dinomc_tpu_torch.cli import attention_video
+    from dinomc_tpu_torch.models import vit as tvit
+    from dinomc_tpu_torch.ops.augment import normalize
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.ops.hopper.attention import fused_mha_reference
+    from dinomc_tpu_torch.utils import video_generation as vg
+
+    frames = _video_batch(VIDEO_FRAMES, 17)
+    with tempfile.TemporaryDirectory() as root:
+        os.makedirs(f"{root}/frames")
+        for i, f in enumerate(frames):
+            Image.fromarray((f * 255).astype("uint8")).save(f"{root}/frames/{i:03d}.png")
+        args = attention_video.get_args_parser().parse_args([
+            "--device", "cuda", "--batch_size", str(VIDEO_BATCH), "--image_size",
+            str(VIDEO_SIZE), "--input_path", f"{root}/frames", "--output_path",
+            f"{root}/out/attention.mp4"])
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = attention_video.run(args)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        size = os.path.getsize(out) if os.path.exists(out) else 0
+    depth = tvit.vit_small(8).depth
+    _check_launches("attention video", launches,
+                    {"attention_fwd": -(-VIDEO_FRAMES // VIDEO_BATCH) * (depth - 1)})
+    print(f"[attention video] {VIDEO_FRAMES} frames of {VIDEO_SIZE} px -> {os.path.basename(out)} "
+          f"({size} bytes) in {wall:.3f} s  [{smi}]")
+    if not size:
+        raise AssertionError(f"the attention video wrote nothing at {out}")
+
+    vit = tvit.VisionTransformer(tvit.vit_small(8), torch.Generator().manual_seed(0)).cuda()
+    batch = frames[:VIDEO_BATCH]
+    maps = vg.attention_heatmaps(vit, batch, 0.6)
+    finite = bool(np.isfinite(maps).all() and (maps >= 0).all() and maps.sum() > 0)
+    x = normalize(torch.as_tensor(batch, device="cuda"))
+
+    def attn():
+        with torch.no_grad():
+            return tvit.vit_last_selfattention(vit, x)
+
+    kern = attn()
+    kern_ms = _time_ms(torch, attn)
+    mha = tvit.mha
+    tvit.mha = lambda q, k, v, scale, boundary=0: fused_mha_reference(q, k, v, scale, boundary)
+    try:
+        plain = attn()
+        plain_ms = _time_ms(torch, attn)
+    finally:
+        tvit.mha = mha
+    err = (kern - plain).abs().max().item()
+    print(f"[attention video] heatmaps {maps.shape} finite and >= 0: {finite}; "
+          f"vit_last_selfattention (B = {VIDEO_BATCH}, bf16) {tuple(kern.shape)} {kern.dtype}, "
+          f"K1 against the plain attention max|diff| {err:.3e} (bound {ATTN_FWD_ATOL}); "
+          f"ms {kern_ms:.4f}, plain {plain_ms:.4f}  [{smi}]")
+    if not (finite and kern.dtype == torch.float32 and err <= ATTN_FWD_ATOL):
+        raise AssertionError("the attention map: see the line above")
+    return launches
+
+
+def _convert(ckpt, out, *flags):
+    from dinomc_tpu_torch.cli import convert_ckpt
+
+    return convert_ckpt.run(convert_ckpt.get_args_parser().parse_args(
+        ["--ckpt", str(ckpt), "--out", str(out), *flags]))
+
+
+def _p17_convert(torch, keep):
+    """(b) ``cli.convert_ckpt`` on the checkpoints of phases 4, 13, 6 and 12;
+    each file read back by the port's importers into a fresh module whose
+    features or logits must equal those of the state it was converted from."""
+    import glob
+
+    from dinomc_tpu_torch.ckpt import torch_import as ti
+    from dinomc_tpu_torch.ckpt.torch_export import strip_prefix
+    from dinomc_tpu_torch.models.encoders import EncoderConfig
+    from dinomc_tpu_torch.models.upernet import UPerNetConfig
+    from dinomc_tpu_torch.ops.augment import normalize
+    from dinomc_tpu_torch.train.cls_trainer import ClsConfig, cls_predict, init_cls_train_state
+    from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state, seg_predict
+
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    x = normalize(torch.rand(4, 224, 224, 3, generator=gen, device="cuda"))
+
+    def newest(name):
+        path = sorted(glob.glob(f"{keep}/{name}/ckpt_*.pth"))[-1]
+        return torch.load(path, map_location="cuda", weights_only=True)
+
+    results = {}
+    with tempfile.TemporaryDirectory() as out, torch.no_grad():
+        for name, arch in (("vit_dino", "vit_small"), ("resnet50_dino", "resnet50")):
+            enc = EncoderConfig(arch=arch, patch_size=8)
+            saved = newest(name)
+            files = {"backbone": _convert(f"{keep}/{name}", f"{out}/{name}_bb.pth", "--arch", arch,
+                                          "--what", "backbone")}
+            if arch == "vit_small":
+                files["dino"] = _convert(f"{keep}/{name}", f"{out}/{name}.pth", "--arch", arch)
+            else:  # phase 13 trains a BatchNorm head, which has no reference layout
+                try:
+                    _convert(f"{keep}/{name}", f"{out}/{name}.pth", "--arch", arch, "--what", "dino")
+                    raise AssertionError("a BN-in-head DINO file was written")
+                except ValueError as err:
+                    print(f"[convert {name}] --what dino refused: {err}")
+            for kind, path in files.items():
+                for tower in (("teacher", "student") if kind == "dino" else ("teacher",)):
+                    ref = enc.build(None).cuda()
+                    ref.load_state_dict(strip_prefix(saved[tower], "backbone."), strict=True)
+                    back = enc.build(None).cuda()
+                    ti.load_backbone(back, path, tower)
+                    results[f"{name} {kind} {tower}"] = torch.equal(enc.apply(back, x),
+                                                                    enc.apply(ref, x))
+
+        saved = newest("seg")["model"]
+        path = _convert(f"{keep}/seg", f"{out}/seg.pth")
+        sd = ti.read_upernet_state_dict(path)
+        cfg = SegConfig(model=UPerNetConfig(num_classes=8, **ti.upernet_widths(sd)))
+        back, ref = (init_seg_train_state(cfg, 0, "cuda").model for _ in range(2))
+        ti.load_upernet_checkpoint(back, sd)
+        ref.load_state_dict(saved, strict=True)
+        results["seg"] = torch.equal(seg_predict(back, x[:2]), seg_predict(ref, x[:2]))
+
+        saved = newest("eurosat_vit")["model"]
+        path = _convert(f"{keep}/eurosat_vit", f"{out}/eurosat.pth", "--arch", "vit_small")
+        cfg = ClsConfig(arch="vit_small", patch_size=8, num_classes=CLS_CLASSES)
+        back, ref = (init_cls_train_state(cfg, 0, "cuda").model for _ in range(2))
+        ti.load_cls_checkpoint(back, path)
+        ref.load_state_dict(saved, strict=True)
+        results["eurosat cls"] = torch.equal(cls_predict(back, x, cfg), cls_predict(ref, x, cfg))
+    print(f"[convert] read back bit-equal to the state converted: {results}")
+    if not all(results.values()):
+        raise AssertionError("a converted checkpoint does not give its state's outputs")
+
+
+def _p17_oscd_learning(torch, smi):
+    """(c) ``scripts/oscd_learning_torch.py`` at smoke size: pretrain ->
+    convert -> both OSCD legs. Returns the launches."""
+    import importlib.util
+
+    from dinomc_tpu_torch.ops.hopper import _build
+
+    spec = importlib.util.spec_from_file_location(
+        "oscd_learning_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                            "scripts", "oscd_learning_torch.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with tempfile.TemporaryDirectory() as work:
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        rc = script.main(OSCD_LEARNING_ARGS + ["--workdir", work])
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        with open(f"{work}/oscd_learning.json") as f:
+            result = json.load(f)
+        converted = os.path.exists(f"{work}/teacher_rn50.pth")
+    _check_launches("oscd learning", launches, {"photometric": OSCD_LEARNING_K3})
+    print(f"[oscd learning] exit {rc}, teacher converted: {converted}, F1 pretrained "
+          f"{result['trajectory_f1_pretrained']}, random {result['trajectory_f1_random']}, "
+          f"pretraining {result['pretrain_seconds']} s, {wall:.1f} s in all  [{smi}]")
+    if rc != 0 or not converted or len(result["trajectory_f1_pretrained"]) != 2:
+        raise AssertionError("the OSCD learning run's wiring: see the line above")
+    return launches
+
+
+def _p17_export(torch, smi):
+    """(d) ``ckpt/export``: ViT-S/8 UPerNet at 224 and 512 px and the Swin-T
+    classifier, each exported, saved, loaded and called; then the custom
+    op's host cost against the launcher's. Returns the launches."""
+    from dinomc_tpu_torch.ckpt import export as ex
+    from dinomc_tpu_torch.models.upernet import UPerNetConfig
+    from dinomc_tpu_torch.ops.augment import normalize
+    from dinomc_tpu_torch.ops.hopper import _build, custom_ops
+    from dinomc_tpu_torch.ops.hopper import attention as ha
+    from dinomc_tpu_torch.train.cls_trainer import ClsConfig, cls_predict, init_cls_train_state
+    from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state, seg_predict
+
+    gen = torch.Generator(device="cuda").manual_seed(172)
+    seg = init_seg_train_state(SegConfig(model=UPerNetConfig(num_classes=8)), 0, "cuda").model
+    swin_cfg = ClsConfig(arch="swin_t", num_classes=CLS_CLASSES)
+    swin = init_cls_train_state(swin_cfg, 0, "cuda").model
+    cases = [("seg vit_small/8 224 px", 224, lambda p: ex.export_seg_model(seg, p, 224, EXPORT_B),
+              lambda x: seg_predict(seg, x), "attention_fwd"),
+             ("seg vit_small/8 512 px", 512, lambda p: ex.export_seg_model(seg, p, 512, EXPORT_B),
+              lambda x: seg_predict(seg, x), "long_attention_fwd"),
+             ("classifier swin_t 224 px", 224,
+              lambda p: ex.export_classifier(swin, swin_cfg, p, 224, EXPORT_B),
+              lambda x: cls_predict(swin, x, swin_cfg), "window_attention_fwd")]
+    total = {}
+    with tempfile.TemporaryDirectory() as out:
+        for tag, size, export, eager, op in cases:
+            t0 = time.perf_counter()
+            nbytes = export(f"{out}/p.pt2")
+            export_s = time.perf_counter() - t0
+            prog = ex.load_exported(f"{out}/p.pt2")
+            ops = {str(nd.target) for nd in prog.graph.nodes
+                   if str(nd.target).startswith("dinomc_torch.")}
+            x = normalize(torch.rand(EXPORT_B, size, size, 3, generator=gen, device="cuda"))
+            want = eager(x)
+            _build.LAUNCHES.clear()
+            got = prog(x)
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+            _check_launches(f"export {tag}", launches, {op: 12})
+            for name, c in launches.items():
+                total[name] = total.get(name, 0) + c
+            diff = (got.float() - want.float()).abs().max().item()
+            bound = EXPORT_RTOL * want.float().abs().max().item()
+            # host-issued calls (a ViT whose position table is resized, at
+            # 512 px, uploads its bicubic matrices at every call, eager or not)
+            times = {"program_host_ms": _host_ms(torch, lambda: prog(x)),
+                     "eager_host_ms": _host_ms(torch, lambda: eager(x))}
+            print(f"[export {tag}] {nbytes} bytes in {export_s:.1f} s; graph ops {sorted(ops)}; "
+                  f"output {tuple(got.shape)} {got.dtype}, bit-equal to eager: "
+                  f"{torch.equal(got, want)}, max|diff| {diff:.3e} (bound {bound:.3e}); "
+                  f"{_fmt(times)}  [{smi}]")
+            if ops != {f"dinomc_torch.{op}.default"} or diff > bound or got.shape != want.shape:
+                raise AssertionError(f"export {tag}: see the line above")
+            del prog
+
+    # the dispatcher's cost: K1 at phase 2's shape through the custom op and
+    # through the launcher the training path's Function calls
+    B, N, h, d = ATTN_SHAPES[0][1:5]
+    q, k, v = torch.randn(3, B, N, h, d, generator=gen, device="cuda").bfloat16().unbind(0)
+    scale = 1.0 / math.sqrt(d)
+    host = {"launcher_host_ms": _host_ms(torch, lambda: ha.attention_fwd(q, k, v, scale, 0)),
+            "custom_op_host_ms": _host_ms(torch, lambda: custom_ops.attention_fwd(q, k, v, scale, 0))}
+    host["launcher_host_ms_again"] = _host_ms(torch, lambda: ha.attention_fwd(q, k, v, scale, 0))
+    print(f"[custom op] K1 at B={B} N={N} h={h} d={d}: {_fmt(host)}  [{smi}]")
+    return total
+
+
+def _p17_profiling(torch, smi):
+    """(e) ``utils/profiling.trace`` around one ViT-S/8 DINO step (after a
+    warm one): the trace names K1's kernel; the memory readout has both
+    keys. Returns the traced step's launches."""
+    from dinomc_tpu_torch.train.dino_trainer import init_dino_train_state
+    from dinomc_tpu_torch.utils import profiling
+
+    cfg, sch, batches = _dino_setup(torch)
+    state = init_dino_train_state(cfg, 0, "cuda")
+    _step(torch, state, batches[0], sch, cfg)
+    with tempfile.TemporaryDirectory() as out:
+        with profiling.trace(out):
+            loss, ms, launches, _ = _step(torch, state, batches[1], sch, cfg)
+        with open(os.path.join(out, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum(1 for e in kernels if "attn_fwd_kernel" in e.get("name", ""))
+    stats = profiling.device_memory_stats()
+    print(f"[profiling] traced step: loss {loss:.4f}, {ms:.3f} ms, launches {launches}; trace "
+          f"events {len(events)}, kernels {len(kernels)}, attn_fwd_kernel {k1}; memory {stats}  "
+          f"[{smi}]")
+    if not (k1 == launches.get("attention_fwd", -1) > 0 and set(stats) == {"mb_in_use", "mb_limit"}):
+        raise AssertionError("profiling: see the line above")
+    return launches
+
+
+def phase_serving(torch, smi, keep):
+    """Phase 17: the attention video, the converter, the OSCD learning
+    run's wiring, serving export and the profiling hooks. Returns the
+    launches of the phase's main paths, summed by kernel."""
+    total = {}
+    t0 = time.perf_counter()
+    for launches in (_p17_video(torch, smi), _p17_convert(torch, keep),
+                     _p17_oscd_learning(torch, smi), _p17_export(torch, smi),
+                     _p17_profiling(torch, smi)):
+        for name, c in (launches or {}).items():
+            total[name] = total.get(name, 0) + c
+        torch.cuda.empty_cache()
+    print(f"[phase 17] launches {total}; {time.perf_counter() - t0:.1f} s  [{smi}]")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2085,22 +2417,27 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     smi = phase_card(torch)
-    fwd_err, grad_err, attn_t = phase_attention(torch)
-    photo_err, photo_t = phase_photometric(torch)
-    launches = phase_train(torch, smi)
-    long_err, long_t = phase_long_attention(torch)
-    seg_launches = phase_seg(torch, smi)
-    win_err, win_t = phase_window_attention(torch)
-    swin_launches = phase_swin_train(torch, smi)
-    mlp_err, mlp_t = phase_fused_mlp(torch)
-    wins_err, wins_t, wins_launches = phase_window_attention_stacked(torch, win_t)
-    mlp_launches = phase_fused_mlp_train(torch, smi)
-    cls_launches = phase_cls(torch, smi)
-    convnet_launches = phase_convnets(torch, smi)
-    full_res_launches = phase_full_res(torch, smi)
-    phase_oscd(torch, smi)
-    xcit_launches = phase_xcit(torch, smi)
-    tp_err, tp_photo_t, tp_launches = phase_tp(torch, smi)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpts_")  # phases 4, 6, 12, 13 -> phase 17
+    try:
+        fwd_err, grad_err, attn_t = phase_attention(torch)
+        photo_err, photo_t = phase_photometric(torch)
+        launches = phase_train(torch, smi, keep)
+        long_err, long_t = phase_long_attention(torch)
+        seg_launches = phase_seg(torch, smi, keep)
+        win_err, win_t = phase_window_attention(torch)
+        swin_launches = phase_swin_train(torch, smi)
+        mlp_err, mlp_t = phase_fused_mlp(torch)
+        wins_err, wins_t, wins_launches = phase_window_attention_stacked(torch, win_t)
+        mlp_launches = phase_fused_mlp_train(torch, smi)
+        cls_launches = phase_cls(torch, smi, keep)
+        convnet_launches = phase_convnets(torch, smi, keep)
+        full_res_launches = phase_full_res(torch, smi)
+        phase_oscd(torch, smi)
+        xcit_launches = phase_xcit(torch, smi)
+        tp_err, tp_photo_t, tp_launches = phase_tp(torch, smi)
+        serving_launches = phase_serving(torch, smi, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "dinomc_tpu"))
     if bad:
@@ -2112,9 +2449,10 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
-    def with_cls(counts, name):  # a main path's launches, phases 12, 14-16's counted in
+    def with_cls(counts, name):  # a main path's launches, phases 12, 14-17's counted in
         return (counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
-                + xcit_launches.get(name, 0) + tp_launches.get(name, 0))
+                + xcit_launches.get(name, 0) + tp_launches.get(name, 0)
+                + serving_launches.get(name, 0))
 
     kernels = [
         entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
@@ -2125,14 +2463,16 @@ def main() -> int:
               attn_t["bwd_plain_ms"], attn_t["bwd_bound"], attn_t["bwd_library_ms"]),
         entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
               launches.get("photometric", 0) + convnet_launches.get("photometric", 0)
-              + xcit_launches.get("photometric", 0) + tp_launches.get("photometric", 0),
+              + xcit_launches.get("photometric", 0) + tp_launches.get("photometric", 0)
+              + serving_launches.get("photometric", 0),
               max(photo_err, tp_err), photo_t["ms"], photo_t["plain_ms"], photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),
                             ("long_attention_dkv", 187, "dkv")):
         kernels.append(entry(
             name, "attention_long.cu", f"dinomc_tpu/ops/pallas/attention_long.py:{line}",
-            seg_launches.get(name, 0) + full_res_launches.get(name, 0), long_err[key],
+            seg_launches.get(name, 0) + full_res_launches.get(name, 0)
+            + serving_launches.get(name, 0), long_err[key],
             long_t[f"{key}_ms"], long_t[f"{key}_plain_ms"], long_t[f"{key}_bound"],
             long_t[f"{key}_library_ms"]))
     stage1 = win_t[0]  # the timed shape: stage 1 of the 224 px globals

@@ -126,13 +126,11 @@ def save_cls_checkpoint(path: str, model: nn.Module, epoch: int = 0,
     classification layout: ``{'epoch', 'state_dict', 'best_acc'}``, the
     classifier at ``head.weight`` (C, D) and ``head.bias``, or at ``fc.*``
     for a ResNet, whose BatchNorm buffers are in the state dict."""
+    from dinomc_tpu_torch.ckpt.torch_export import write_cls
+
     name = classifier_name(model["backbone"])
     sd = {k[len("backbone."):]: v.detach().cpu()
           for k, v in model.state_dict().items() if k.startswith("backbone.")}
     sd[name + ".weight"] = model.state_dict()["fc.kernel"].detach().cpu().T.contiguous()
     sd[name + ".bias"] = model.state_dict()["fc.bias"].detach().cpu()
-    save = {"epoch": int(epoch), "state_dict": sd}
-    if best_acc is not None:
-        save["best_acc"] = float(best_acc)
-    torch.save(save, path)
-    return path
+    return write_cls(path, sd, epoch, best_acc)

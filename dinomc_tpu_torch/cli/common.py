@@ -38,12 +38,25 @@ def ensure_dir(path: str) -> str:
     return path
 
 
+ORBAX_HINT = ("convert an orbax directory with the JAX package's `python -m "
+              "dinomc_tpu.cli.convert_ckpt` in its JAX environment")
+
+
+def orbax_refusal(path: str) -> NotImplementedError:
+    """The error for a checkpoint directory where the port takes a ``.pth``:
+    the port reads no orbax directory (orbax needs jax)."""
+    return NotImplementedError(
+        f"{path}: a directory, not a .pth file; the port reads no orbax checkpoint. Pass a "
+        "reference .pth: convert a port checkpoint with `python -m "
+        f"dinomc_tpu_torch.cli.convert_ckpt`, or {ORBAX_HINT}")
+
+
 def load_pretrained_backbone(module, path: str, checkpoint_key: str = "teacher") -> None:
     """Load ``--pretrained_weights`` into the backbone ``module`` in place:
     a reference ``.pth`` (``load_pretrained_weights`` parity,
     ``utils/utils.py:75-119``). ``checkpoint_key``: 'teacher' (default),
     'student' or 'none'. An orbax checkpoint directory of the JAX package
-    is refused: the port reads none (ROADMAP.md queue 1 #18). So is any
+    is refused with the routes to a ``.pth`` (``orbax_refusal``). So is any
     file for an XCiT: neither package maps a reference XCiT ``.pth`` onto its
     own XCiT (the JAX ``load_backbone_for_arch`` refuses it too)."""
     from dinomc_tpu_torch.ckpt.torch_import import load_backbone
@@ -54,9 +67,7 @@ def load_pretrained_backbone(module, path: str, checkpoint_key: str = "teacher")
                          "resnet50, wide_resnet50_2, swin_t); train it from this port's "
                          "own checkpoints instead")
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read by the port yet "
-            "(ROADMAP.md queue 1 #18); pass a .pth file")
+        raise orbax_refusal(path)
     key = None if checkpoint_key.lower() == "none" else checkpoint_key
     load_backbone(module, path, checkpoint_key=key)
 

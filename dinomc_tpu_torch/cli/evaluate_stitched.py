@@ -15,9 +15,10 @@ back).
 native resolution, or ``synthetic`` (two 448 px frames from seed 0).
 ``--ckpt`` is as in ``cli/predict.py``: a reference ``.pth`` or a port
 ``train_seg`` checkpoint directory. The flags are the JAX CLI's plus
-``--device``; ``--seq_parallel > 1`` and a JAX orbax directory raise with
-their ROADMAP.md items. Each frame's canvas is copied to the host once, and
-only with ``--export_logits_dir``.
+``--device``; ``--seq_parallel > 1`` raises with its ROADMAP.md item, a JAX
+orbax directory with the routes to a ``.pth`` (``cli/common.orbax_refusal``).
+Each frame's canvas is copied to the host once, and only with
+``--export_logits_dir``.
 
 Run ``python -m dinomc_tpu_torch.cli.evaluate_stitched --data_root DIR``.
 """

@@ -15,7 +15,9 @@ official city lists (an 80/20 tile split when no city matches them), or
 ``synthetic``. ``--pretrained_weights`` is a reference ResNet ``.pth`` (a
 DINO teacher under ``--checkpoint_key``, BatchNorm statistics included),
 loaded into the encoder by ``ckpt/torch_import.load_backbone``; a JAX orbax
-directory raises with its ROADMAP.md item (#18). The flags are the JAX
+directory raises with the routes to a ``.pth`` (``cli/common.orbax_refusal``:
+a port checkpoint through ``cli/convert_ckpt``, an orbax directory through the
+JAX CLI ``python -m dinomc_tpu.cli.convert_ckpt``). The flags are the JAX
 CLI's plus ``--device``; one device, so ``--batch_size`` is the batch (the
 JAX CLI's data parallelism over every chip is ROADMAP.md queue 1 #17).
 

@@ -12,8 +12,9 @@ layout; its decoder widths are read from the file), or a directory of the
 port's own ``train_seg`` checkpoints (``<output_dir>/checkpoints``, the
 counterpart of the JAX package's orbax seg state); without it the weights
 come from seed 0. The flags are the JAX CLI's plus ``--device``. Not ported
-yet, and refused with a pointer to ROADMAP.md: ``--seq_parallel > 1`` and a
-JAX orbax directory as ``--ckpt``.
+yet, and refused with a pointer to ROADMAP.md: ``--seq_parallel > 1``. A JAX
+orbax directory as ``--ckpt`` is refused with the routes to a ``.pth``
+(``cli/common.orbax_refusal``).
 
 Run ``python -m dinomc_tpu_torch.cli.predict --image frame.png --grid 2 2``.
 """
@@ -57,6 +58,7 @@ def load_seg_model(args, spec, device):
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
     from dinomc_tpu_torch.ckpt.torch_import import (load_upernet_checkpoint,
                                                     read_upernet_state_dict, upernet_widths)
+    from dinomc_tpu_torch.cli.common import orbax_refusal
     from dinomc_tpu_torch.models.upernet import UPerNetConfig
     from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state
 
@@ -79,10 +81,7 @@ def load_seg_model(args, spec, device):
             raise FileNotFoundError(f"--ckpt {args.ckpt}: no such .pth file or directory")
         files = os.listdir(args.ckpt)
         if files and not any(f.startswith("ckpt_") and f.endswith(".pth") for f in files):
-            raise NotImplementedError(
-                f"--ckpt {args.ckpt}: holds no port checkpoint (ckpt_*.pth); orbax "
-                "checkpoint directories are not read by the port yet (ROADMAP.md queue 1 "
-                "#18); pass a .pth file or a train_seg checkpoint directory")
+            raise orbax_refusal(f"--ckpt {args.ckpt} (no ckpt_*.pth in it)")
         if not CheckpointManager(args.ckpt).restore(state):
             raise FileNotFoundError(f"--ckpt {args.ckpt}: holds no checkpoint")
         print(f"restored seg checkpoint from {args.ckpt}")

@@ -12,9 +12,11 @@ logs. The flags are the JAX CLI's plus ``--device``. Rerunning with the same
 ``--pretrained_ckpt`` takes a reference ``.pth`` (loaded by
 ``ckpt/torch_import.load_backbone`` with ``--checkpoint_key``, ``none`` for
 Facebook DINO/DeiT files); ``--data_root
-synthetic`` needs no dataset. Not ported yet, and refused with a pointer to
-ROADMAP.md: an orbax checkpoint directory as ``--pretrained_ckpt``, and
-``--seq_parallel > 1``.
+synthetic`` needs no dataset. An orbax checkpoint directory as
+``--pretrained_ckpt`` is refused with the routes to a ``.pth``
+(``cli/common.orbax_refusal``: a reference file, a port checkpoint through
+``cli/convert_ckpt``, an orbax directory through the JAX CLI); ``--seq_parallel
+> 1`` is not ported yet and refused with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import List
 
 import numpy as np
 
-from dinomc_tpu_torch.cli.common import bool_flag
+from dinomc_tpu_torch.cli.common import bool_flag, orbax_refusal
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -102,9 +104,7 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--seq_parallel > 1 is not ported yet (ROADMAP.md queue 1 #17, multi-device)")
     if args.pretrained_ckpt and not args.pretrained_ckpt.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"--pretrained_ckpt {args.pretrained_ckpt}: orbax checkpoint directories are "
-            "not read by the port yet (ROADMAP.md queue 1 #18); pass a .pth file")
+        raise orbax_refusal(f"--pretrained_ckpt {args.pretrained_ckpt}")
 
 
 def _datasets(args, spec):

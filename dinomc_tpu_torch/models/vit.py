@@ -39,8 +39,13 @@ more a block (the JAX package's recompute drops it as dead code). DropPath
 keep-decisions are drawn once, outside the checkpointed blocks, so a replay
 sees the same masks. Every policy computes the same numbers as no remat.
 
-Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi``,
-``vit_forward_sp`` and ``vit_last_selfattention``.
+``vit_last_selfattention`` (the attention video's map) runs the first L-1
+blocks through the same block path (K1 on a card) and the last block's
+attention densely with its probabilities, as the JAX package does outside
+Pallas.
+
+Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi`` and
+``vit_forward_sp``.
 """
 
 from __future__ import annotations
@@ -388,6 +393,21 @@ def _attention(x: torch.Tensor, attn: Attention, num_heads: int, boundary: int):
     return linear(out.reshape(B, N, D), attn.proj)
 
 
+def _attention_probs(x: torch.Tensor, attn: Attention, num_heads: int):
+    """Dense MHSA that also returns its probabilities (the JAX package's
+    ``_attention(return_attn=True)``): logits in f32 times the scale, f32
+    softmax, the weighted V in x's dtype, then the projection. Returns
+    (out (B, N, D), probs (B, heads, N, N) f32)."""
+    B, N, D = x.shape
+    hd = D // num_heads
+    qkv = linear(x, attn.qkv).reshape(B, N, 3, num_heads, hd)
+    q, k, v = qkv.unbind(2)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhnm,bmhd->bnhd", probs.to(x.dtype), v).reshape(B, N, D)
+    return linear(out, attn.proj), probs
+
+
 def _mlp(x: torch.Tensor, mlp: Mlp, gelu_approx: bool, impl: str = "dense") -> torch.Tensor:
     if impl == "fused":
         B, N, D = x.shape
@@ -528,3 +548,19 @@ def vit_intermediate_layers(
     if apply_norm:
         out = [layer_norm(t, vit.norm, cfg.layernorm_eps) for t in out]
     return torch.stack([t.float() for t in out])
+
+
+def vit_last_selfattention(vit: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """Attention of the last block: (B, H, W, C) -> (B, heads, N+1, N+1) f32
+    (the reference's ``get_last_selfattention``,
+    ``vision_transformer.py:218-225``). The first L-1 blocks run without
+    DropPath on the block path (``mha``: K1 on a card); the last block's
+    ``norm1`` and dense attention give the probabilities."""
+    cfg = vit.cfg
+    x = prepare_tokens(vit, x)
+    for blk in vit.blocks[:-1]:
+        x = _remat(cfg, _block, x, blk, cfg, None, None, 0)
+    last = vit.blocks[-1]
+    _, probs = _attention_probs(layer_norm(x, last.norm1, cfg.layernorm_eps), last.attn,
+                                cfg.num_heads)
+    return probs

@@ -13,12 +13,14 @@ without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -34,6 +36,32 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Kernel launches by name. Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show which kernels its path took.
 LAUNCHES: Counter = Counter()
+
+
+class _Route(threading.local):
+    ops = False
+
+
+_ROUTE = _Route()
+
+
+@contextlib.contextmanager
+def route_ops():
+    """Within this block, on this thread, the forward dispatchers (``mha``'s
+    two kernels, ``window_attention``, ``fused_mlp``) call their
+    ``torch.library`` custom ops (``ops/hopper/custom_ops.py``) instead of
+    their autograd Functions, so ``torch.export`` records each kernel as one
+    ``dinomc_torch::`` op. The training path never enters it."""
+    prev, _ROUTE.ops = _ROUTE.ops, True
+    try:
+        yield
+    finally:
+        _ROUTE.ops = prev
+
+
+def ops_routed() -> bool:
+    return _ROUTE.ops
+
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {

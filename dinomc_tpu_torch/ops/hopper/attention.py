@@ -176,7 +176,12 @@ def fused_mha(
     """Attention over (B, N, h, d). ``boundary`` (optional) splits the
     sequence into two packed crops with block-diagonal attention. CUDA
     tensors go through the kernels (bf16 only); CPU tensors through
-    ``fused_mha_reference``."""
+    ``fused_mha_reference``. Inside ``_build.route_ops()`` (an export's
+    trace) the forward is the custom op ``dinomc_torch::attention_fwd``."""
+    if _build.ops_routed():
+        from dinomc_tpu_torch.ops.hopper import custom_ops
+
+        return custom_ops.attention_fwd(q, k, v, float(scale), int(boundary))
     if q.device.type == "cpu":
         return fused_mha_reference(q, k, v, scale, boundary)
     return FusedMHA.apply(q, k, v, float(scale), int(boundary))

@@ -115,7 +115,12 @@ class LongMHA(torch.autograd.Function):
 def long_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """Attention over (B, N, h, d) for long N, any length. CUDA tensors go
     through the kernels (bf16 only); CPU tensors through
-    ``long_mha_reference``."""
+    ``long_mha_reference``. Inside ``_build.route_ops()`` the forward is the
+    custom op ``dinomc_torch::long_attention_fwd``."""
+    if _build.ops_routed():
+        from dinomc_tpu_torch.ops.hopper import custom_ops
+
+        return custom_ops.long_attention_fwd(q, k, v, float(scale))
     if q.device.type == "cpu":
         return long_mha_reference(q, k, v, scale)
     return LongMHA.apply(q, k, v, float(scale))

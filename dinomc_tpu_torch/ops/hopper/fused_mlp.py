@@ -111,6 +111,12 @@ def fused_mlp(
 ) -> torch.Tensor:
     """GELU(x W1^T + b1) W2^T + b2 over x (M, D), weights in the Linear
     layout. CUDA tensors go through K11 (bf16 only); CPU tensors through
-    ``fused_mlp_reference``. Both take the same backward."""
+    ``fused_mlp_reference``. Both take the same backward. Inside
+    ``_build.route_ops()`` the forward is the custom op
+    ``dinomc_torch::fused_mlp``."""
+    if _build.ops_routed():
+        from dinomc_tpu_torch.ops.hopper import custom_ops
+
+        return custom_ops.fused_mlp(x, w1, b1, w2, b2, bool(approx))
     forward = fused_mlp_reference if x.device.type == "cpu" else fused_mlp_fwd
     return FusedMLP.apply(x, w1, b1, w2, b2, bool(approx), forward)

@@ -261,9 +261,17 @@ def window_attention(
     bias (heads, 49, 49) f32 and an optional (nW, 49 or 1, 49) f32 mask for
     window ``w mod nW``. CUDA tensors go through the kernels of ``variant``
     (``'perhead'``: K7/K8, ``'stacked'``: K9/K10; bf16 only); CPU tensors
-    through ``window_attention_reference``, the plain version of both."""
+    through ``window_attention_reference``, the plain version of both.
+    Inside ``_build.route_ops()`` the forward is the custom op
+    ``dinomc_torch::window_attention_fwd`` (``_stacked_fwd``)."""
     if variant not in _VARIANTS:
         raise ValueError(f"window_attention variant must be one of {sorted(_VARIANTS)}, got {variant!r}")
+    if _build.ops_routed():
+        from dinomc_tpu_torch.ops.hopper import custom_ops
+
+        op = (custom_ops.window_attention_fwd if variant == "perhead"
+              else custom_ops.window_attention_stacked_fwd)
+        return op(q, k, v, bias, mask, int(heads))
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, bias, mask, heads)
     return WindowAttention.apply(q, k, v, bias, mask, int(heads), variant)

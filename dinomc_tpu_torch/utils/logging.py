@@ -1,12 +1,12 @@
 """Training-loop logging: smoothed meters, epoch iteration lines, JSONL,
 the per-epoch CSV and optional Weights & Biases runs.
 
-Counterpart of the parts of ``dinomc_tpu/utils/logging.py`` the CLIs use:
-``SmoothedValue`` / ``MetricLogger.log_every`` (reference
-``utils/utils.py:239-416``), ``JsonlLogger`` (``main_dino_mc.py:348-350``),
-``write_epoch_csv`` and ``WandbLogger`` (copied as they are; jax-free in the
-JAX package too). The memory readout is ``torch.cuda.memory_allocated`` when
-a card is in use.
+Counterpart of ``dinomc_tpu/utils/logging.py``: ``SmoothedValue`` /
+``MetricLogger.log_every`` (reference ``utils/utils.py:239-416``),
+``JsonlLogger`` (``main_dino_mc.py:348-350``); ``write_epoch_csv``,
+``TensorBoardLogger``, ``WandbLogger``, ``Tee`` and ``Timer`` are copied as
+they are (jax-free in the JAX package too). The memory readout is
+``torch.cuda.memory_allocated`` when a card is in use.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import csv
 import datetime
 import json
 import os
+import sys
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional, Sequence
@@ -152,6 +153,41 @@ def write_epoch_csv(
         writer.writerow(row)
 
 
+class TensorBoardLogger:
+    """Optional TensorBoard scalars/images (reference OSCD Lightning logging,
+    ``main_oscd.py:54-78``). Gated: no-ops when tensorboard is unavailable."""
+
+    def __init__(self, log_dir: str):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._w = SummaryWriter(log_dir)
+        except Exception:
+            self._w = None
+
+    @property
+    def active(self) -> bool:
+        return self._w is not None
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if self._w is not None:
+            self._w.add_scalar(tag, value, step)
+
+    def image(self, tag: str, image, step: int) -> None:
+        """image: (H, W, 3) float [0,1] or uint8."""
+        if self._w is not None:
+            import numpy as np
+
+            arr = np.asarray(image)
+            if arr.dtype != np.uint8:
+                arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+            self._w.add_image(tag, arr, step, dataformats="HWC")
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+
+
 class WandbLogger:
     """Optional Weights & Biases run logging (the reference seg trainers
     call ``wandb.init``/``wandb.log`` directly, ``train_dino_mc_seg.py:44-59,
@@ -182,3 +218,50 @@ class WandbLogger:
         if self._run is not None:
             self._run.finish()
             self._run = None
+
+
+class Tee:
+    """Mirror stdout to a log file (reference ``Logger``,
+    ``utils/logger_tool.py``)."""
+
+    def __init__(self, path: str):
+        self.file = open(path, "a")
+        self.stdout = sys.stdout
+
+    def __enter__(self):
+        sys.stdout = self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.stdout
+        self.file.close()
+
+    def write(self, msg):
+        self.stdout.write(msg)
+        self.file.write(msg)
+
+    def flush(self):
+        self.stdout.flush()
+        self.file.flush()
+
+
+class Timer:
+    """Progress timer with ETA (reference ``Timer``, ``utils/logger_tool.py:33-72``)."""
+
+    def __init__(self, total: int = 0):
+        self.total = total
+        self.start = time.time()
+        self.done = 0
+
+    def update(self, n: int = 1):
+        self.done += n
+
+    @property
+    def elapsed(self) -> float:
+        return time.time() - self.start
+
+    @property
+    def eta(self) -> float:
+        if self.done == 0:
+            return 0.0
+        return self.elapsed / self.done * (self.total - self.done)

@@ -25,7 +25,8 @@ two windows:
    augmentation, forward and backward (DINO: teacher + student), and the
    optimizer (DINO: clip + AdamW or LARS + EMA; seg: AdamW); the host clock, with
    the device synchronized, times the whole step. Medians are reported.
-2. **profiled**, 3 steps under ``torch.profiler``. From the
+2. **profiled**, 3 steps under ``torch.profiler``
+   (``dinomc_tpu_torch.utils.profiling.trace``). From the
    exported trace: device busy time, the union of kernel, memcpy and memset
    intervals (user annotations are not device work and are left out); the
    traced span, from the first device event to the last; and the traced
@@ -59,6 +60,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dinomc_tpu_torch.models.vit import MLP_IMPLS, REMAT_POLICIES  # noqa: E402
 from dinomc_tpu_torch.ops.hopper import _build  # noqa: E402
+from dinomc_tpu_torch.utils import profiling  # noqa: E402
 
 DEVICE_CATS = {"kernel", "gpu_memcpy", "gpu_memset"}
 WARMUP, STEPS, PROFILE_STEPS = 3, 5, 3
@@ -213,16 +215,14 @@ def main() -> int:
     med = [statistics.median(x) for x in zip(*split)]
 
     _build.LAUNCHES.clear()
-    trace = os.path.join(opt.out_dir, "trace.json")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profiling.trace(opt.out_dir) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
             step()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     launches = dict(_build.LAUNCHES)
-    prof.export_chrome_trace(trace)
+    trace = os.path.join(opt.out_dir, profiling.TRACE_FILE)
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as z:

@@ -3,8 +3,8 @@ the JAX package, and the rule that the port imports nothing of it.
 
 The port keeps numpy/PyTorch copies of what it took from jax-free modules
 of ``dinomc_tpu``: the state-dict exporters (``ckpt/state_dicts.py``), the
-reference-checkpoint import (``ckpt/torch_import.py``), the CSV and W&B
-loggers, the pretraining host readers and the packed-corpus writer
+reference-checkpoint import (``ckpt/torch_import.py``), the CSV, W&B and
+TensorBoard loggers, ``Tee`` and ``Timer``, ``core/config.py``, the pretraining host readers and the packed-corpus writer
 (``data/{seco,packed,native_loader}.py``, ``cli/pack_data.py``; the band
 readers, ``MCTemporal``, the writer and the temporal packed readers are
 held in tests/test_torch_pack_bands.py), the synthetic texture worlds and Voronoi scenes
@@ -150,6 +150,62 @@ def seco_tree(tmp_path):
             img = rng.integers(0, 256, (30 + loc, 40 - loc, 3), dtype=np.uint8)
             Image.fromarray(img).save(d / f"t{j}{ext}")
     return root
+
+
+def test_core_config_is_the_original(monkeypatch):
+    """The presets, and the workspace paths with and without their
+    ``DINOMC_*`` overrides."""
+    import dataclasses
+
+    from dinomc_tpu.core import config as jcfg
+    from dinomc_tpu_torch.core import config as tcfg
+
+    assert {k: dataclasses.asdict(v) for k, v in tcfg.VIT_PRESETS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jcfg.VIT_PRESETS.items()}
+    assert dataclasses.asdict(tcfg.SEG_TRAIN_PRESET) == dataclasses.asdict(jcfg.SEG_TRAIN_PRESET)
+    for env in ({}, {"DINOMC_DATA_ROOT": "/d", "DINOMC_WEIGHTS_ROOT": "/w"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        ours, ref = tcfg.Workspace(), jcfg.Workspace()
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        for call in (lambda w: w.dataset_dir("uavid"), lambda w: w.dataset_dir("udd6", 512),
+                     lambda w: w.split_dir("potsdam", "val", 224), lambda w: w.pretrain_dir("r"),
+                     lambda w: w.seg_dir("r"), lambda w: w.reference_weights("dino_mc/a.pth")):
+            assert call(ours) == call(ref)
+
+
+def test_tensorboard_tee_and_timer_are_the_originals(tmp_path, monkeypatch, capsys):
+    """``TensorBoardLogger`` writes where the original writes and no-ops where
+    it no-ops (its writer's package made unimportable); ``Tee`` mirrors
+    stdout into the same file; ``Timer`` counts the same."""
+    import sys
+
+    for name, pkg in (("ours", tlog), ("ref", jlog)):
+        tb = pkg.TensorBoardLogger(str(tmp_path / f"tb_{name}"))
+        tb.scalar("loss", 1.5, 0)
+        tb.image("img", np.zeros((4, 4, 3), np.float32), 0)
+        tb.close()
+    assert sorted(p.name.split(".")[0] for p in (tmp_path / "tb_ours").iterdir()) == \
+        sorted(p.name.split(".")[0] for p in (tmp_path / "tb_ref").iterdir())
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    off = [pkg.TensorBoardLogger(str(tmp_path / "off")) for pkg in (tlog, jlog)]
+    assert [lg.active for lg in off] == [False, False]
+    off[0].scalar("x", 1.0, 0)
+    off[0].close()
+
+    for name, pkg in (("ours", tlog), ("ref", jlog)):
+        with pkg.Tee(str(tmp_path / f"{name}.log")):
+            print("line one")
+            print("line", 2)
+    assert (tmp_path / "ours.log").read_text() == (tmp_path / "ref.log").read_text() == \
+        "line one\nline 2\n"
+    assert capsys.readouterr().out == "line one\nline 2\n" * 2
+
+    timers = [pkg.Timer(total=10) for pkg in (tlog, jlog)]
+    assert [tm.eta for tm in timers] == [0.0, 0.0]
+    for tm in timers:
+        tm.update(4)
+        assert tm.done == 4 and tm.elapsed >= 0 and tm.eta >= 0
 
 
 def test_native_batch_decoder_is_the_original(seco_tree):
@@ -311,13 +367,18 @@ def test_port_never_imports_the_jax_package():
     """An AST scan of every .py of the port, chip_smoke.py and the port's
     learning check."""
     files = sorted((REPO / "dinomc_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "scripts" / "validate_learning_torch.py"]
+        REPO / "chip_smoke.py", REPO / "scripts" / "validate_learning_torch.py",
+        REPO / "scripts" / "oscd_learning_torch.py"]
     assert len(files) > 30
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"dinomc_tpu_torch/cli/{m}.py" for m in ("predict", "evaluate_stitched", "oscd",
                                                       "bigearthnet")} <= names
     assert "dinomc_tpu_torch/models/xcit.py" in names
     assert "dinomc_tpu_torch/cli/pack_data.py" in names
+    assert {f"dinomc_tpu_torch/{m}.py" for m in (
+        "cli/convert_ckpt", "cli/attention_video", "ckpt/torch_export", "ckpt/export",
+        "ops/hopper/custom_ops", "utils/video_generation", "utils/profiling", "core/config",
+    )} | {"scripts/oscd_learning_torch.py"} <= names
     found = {str(f.relative_to(REPO)): hits for f in files if (hits := _imports_of_the_jax_package(f))}
     assert not found, found
 

@@ -420,7 +420,7 @@ def test_oscd_cli_frozen_then_resumed_then_trained(tmp_path, capsys):
 def test_oscd_cli_loads_a_reference_resnet_teacher(tmp_path):
     """``--pretrained_weights``: a DINO teacher's torchvision-layout ResNet
     (``backbone.`` prefixed, BatchNorm statistics drawn) lands in the
-    encoder; a JAX orbax directory raises with its ROADMAP item."""
+    encoder; a JAX orbax directory raises with the routes to a .pth."""
     params, state = jax.device_get(jrn.init_resnet(jax.random.PRNGKey(7), jrn.resnet_test()))
     state = jax.tree_util.tree_map(lambda v: np.full(v.shape, 0.7, np.float32), state)
     sd = jexport.resnet_state_dict(params, state, "backbone.")
@@ -435,5 +435,5 @@ def test_oscd_cli_loads_a_reference_resnet_teacher(tmp_path):
         np.testing.assert_array_equal(enc[k[len("backbone."):]].numpy(),
                                       np.asarray(v).astype(enc[k[len("backbone."):]].numpy().dtype))
     (tmp_path / "orbax" / "3").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="#18"):
+    with pytest.raises(NotImplementedError, match="cli.convert_ckpt"):
         cli.run(_args(pretrained_weights=str(tmp_path / "orbax"), output_dir=str(tmp_path / "o2")))

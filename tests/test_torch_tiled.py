@@ -481,7 +481,7 @@ def test_evaluate_stitched_cli_runs_and_refuses_what_is_unported(tmp_path, capsy
         mod.run(_args(mod, [], **common, seq_parallel=2))
     orbax = tmp_path / "orbax"
     (orbax / "0").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="#18"):
+    with pytest.raises(NotImplementedError, match="cli.convert_ckpt"):
         mod.run(_args(mod, [], **common, ckpt=str(orbax)))
     assert "mIoU" in capsys.readouterr().out
 
