@@ -161,10 +161,24 @@ script exits non-zero:
    times, and the output is held against the eager model's; K1's host cost
    through its custom op and through its launcher; ``utils/profiling.trace``
    around one DINO step, whose trace names ``attn_fwd_kernel`` once a K1
-   launch.
+   launch;
+18. the multi-device path at world size 1 (one card): a one-rank NCCL group
+   brought up by ``parallel/distributed.init_distributed_mode`` from
+   torchrun's variables (``MASTER_ADDR=localhost``, a free port); 3 steps of
+   ``train_dino --fsdp true`` at phase 4's configuration (ViT-S/8, out_dim
+   65536, B = 8, 2 x 224 + 6 locals, remat ``attn``) inside the group, whose
+   step runs its collectives over NCCL (the gradients' all-reduce, the
+   centre's), against the same 3 steps with no group from the same seed and
+   batches: bit-equal losses and parameters (at data size 1 ZeRO splits
+   nothing, and a one-rank all-reduce is a copy, so the two compute the same
+   operations), K1 60, K2 48 and K3 8 a step; ``models/vit.vit_forward_sp``
+   over the one-rank ring at ViT-S/8, 512 px, B = 4 (4097 tokens), forward
+   and backward in bf16, against ``vit_intermediate_layers`` (K4, K5, K6)
+   within phase 5's relative bound; the distributed step's median ms beside
+   the plain one's.
 
 Then one JSON line with each kernel's launches (K1's and K4's with phase
-14's, K1's, K2's and K3's with phases 15 and 16's, K1-K4's and K7's with
+14's, K1's, K2's and K3's with phases 15, 16 and 18's, K1-K4's and K7's with
 phase 17's; K3's error the worse of phases 3 and 16), error, times, bound and library time, and as the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device it exits with 1
 and prints no result.
@@ -390,6 +404,10 @@ ACCUM_SGD_ARGS = ["--optimizer", "sgd", "--drop_path_rate", "0", "--warmup_epoch
                   "--weight_decay_end", "0", "--freeze_last_layer", "0"]
 ACCUM_MIN_REACH = 4.0
 ACCUM_RUNS = (1, 2, 4)
+# phase 18: the distributed DINO step at world size 1 (3 steps, --fsdp true)
+# and the sequence-parallel ViT-S/8 at 512 px, B = 4
+DIST_STEPS = 3
+SP_B, SP_SIZE, SP_TAPS = 4, 512, (3, 5, 7, 11)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
@@ -2410,6 +2428,153 @@ def phase_serving(torch, smi, keep):
     return total
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dist_train(torch, smi, tag, args_list):
+    """``train_dino`` for DIST_STEPS steps; returns (summary, launches)."""
+    from dinomc_tpu_torch.cli.train_dino import get_args_parser, train_dino
+    from dinomc_tpu_torch.ops.hopper import _build
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = get_args_parser().parse_args(args_list + ["--output_dir", out_dir])
+        _build.LAUNCHES.clear()
+        summary = train_dino(args)
+        launches = dict(_build.LAUNCHES)
+    warm = summary.step_ms[1:]
+    print(f"[{tag}] losses {summary.losses}; launches {launches}; step ms "
+          f"{[round(x, 3) for x in summary.step_ms]}; median of the warm steps "
+          f"{statistics.median(warm):.3f} ms  [{smi}]")
+    return summary, launches
+
+
+def _sp_run(torch, vit, x, w, sp_mesh):
+    """The taps at SP_TAPS (raw block outputs, the seg backbone's contract)
+    and the parameters' gradients of sum(taps * w): through
+    ``vit_forward_sp`` on ``sp_mesh``, or ``vit_intermediate_layers``
+    (K4, K5, K6) when it is None."""
+    from dinomc_tpu_torch.models.vit import vit_forward_sp, vit_intermediate_layers
+
+    params = [p for p in vit.parameters()]
+    if sp_mesh is None:
+        taps = vit_intermediate_layers(vit, x, SP_TAPS, apply_norm=False)
+    else:
+        taps = vit_forward_sp(vit, x, sp_mesh, out_indices=SP_TAPS, apply_norm=False)
+    grads = torch.autograd.grad((taps * w).sum(), params, allow_unused=True,
+                                materialize_grads=True)
+    return taps.detach(), grads
+
+
+def phase_multi_device(torch, smi):
+    """Phase 18: the distributed code path at world size 1 over NCCL.
+    Returns the distributed DINO run's launches."""
+    from dinomc_tpu_torch.core.mesh import make_mesh
+    from dinomc_tpu_torch.models.vit import VIT_FACTORIES, VisionTransformer
+    from dinomc_tpu_torch.ops.hopper import _build
+    from dinomc_tpu_torch.parallel import distributed as pd
+
+    t0 = time.perf_counter()
+    steps_args = [a for a in TRAIN_ARGS]
+    steps_args[steps_args.index("--max_steps") + 1] = str(DIST_STEPS)
+    dist_args = steps_args + ["--fsdp", "true"]
+    plain, _ = _dist_train(torch, smi, "dist plain", dist_args)
+    if pd.is_initialized():
+        raise AssertionError("a process group is up before phase 18 brings one up")
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not pd.init_distributed_mode("cuda"):
+            raise AssertionError("init_distributed_mode brought no group up")
+        backend = torch.distributed.get_backend()
+        print(f"[dist] group up: backend {backend}, world {pd.get_world_size()}, "
+              f"rank {pd.get_rank()}, device cuda:{torch.cuda.current_device()}")
+        if backend != "nccl":
+            raise AssertionError(f"expected NCCL, got {backend}")
+        dist, launches = _dist_train(torch, smi, "dist nccl fsdp", dist_args)
+        if not pd.is_initialized():
+            raise AssertionError("train_dino tore down the caller's group")
+        st = dist.state
+        if not (st.mesh.active and st.placements is not None
+                and not any(st.placements.values())):
+            raise AssertionError("the distributed run did not run on an active one-rank mesh "
+                                 "with every tensor whole")
+        want = {"attention_fwd": 60 * DIST_STEPS, "attention_bwd": 48 * DIST_STEPS,
+                "photometric": 8 * DIST_STEPS}
+        _check_launches("dist nccl fsdp", launches, want)
+        loss_diff = max(abs(a - b) for a, b in zip(dist.losses, plain.losses))
+        param_diff = max((a - b).abs().max().item() for a, b in
+                         zip(st.student.parameters(), plain.state.student.parameters()))
+        teacher_diff = max((a - b).abs().max().item() for a, b in
+                           zip(st.teacher.parameters(), plain.state.teacher.parameters()))
+        center_diff = (st.center - plain.state.center).abs().max().item()
+        print(f"[dist] nccl world 1 against no group: losses max|diff| {loss_diff:.3e}, "
+              f"student {param_diff:.3e}, teacher {teacher_diff:.3e}, centre {center_diff:.3e} "
+              f"(bound: bit-equal, the same operations)")
+        if len(dist.losses) != DIST_STEPS or max(loss_diff, param_diff, teacher_diff,
+                                                 center_diff) != 0.0:
+            raise AssertionError("the world-1 NCCL step is not bit-equal to the plain step")
+        med_d, med_p = statistics.median(dist.step_ms[1:]), statistics.median(plain.step_ms[1:])
+        print(f"[dist] step median ms (CUDA events, augmentation + step, warm steps): "
+              f"distributed {med_d:.3f}, plain {med_p:.3f}, ratio {med_d / med_p:.4f}  [{smi}]")
+        del dist, plain, st
+
+        # the sequence-parallel ViT over the one-rank ring against the
+        # long-sequence kernels' path
+        cfg = VIT_FACTORIES["vit_small"](patch_size=8, img_size=SP_SIZE)
+        vit = VisionTransformer(cfg, torch.Generator().manual_seed(5)).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        x = torch.rand(SP_B, SP_SIZE, SP_SIZE, 3, generator=gen, device="cuda")
+        n_tok = (SP_SIZE // 8) ** 2 + 1
+        w = torch.randn(len(SP_TAPS), SP_B, n_tok, cfg.embed_dim, generator=gen, device="cuda")
+        sp_mesh = make_mesh(data=1, seq=1)
+        _build.LAUNCHES.clear()
+        ref_taps, ref_grads = _sp_run(torch, vit, x, w, None)
+        ref_launches = dict(_build.LAUNCHES)
+        _build.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        taps, grads = _sp_run(torch, vit, x, w, sp_mesh)
+        b.record()
+        b.synchronize()
+        sp_launches = dict(_build.LAUNCHES)
+        fwd_rel = ((taps - ref_taps).abs().max() / ref_taps.abs().max()).item()
+        grad_rel = max(((g - r).float().abs().max() / r.float().abs().max().clamp_min(1e-30)).item()
+                       for g, r in zip(grads, ref_grads) if r.abs().max() > 0)
+        print(f"[dist sp] vit_forward_sp ViT-S/8 {SP_SIZE} px B={SP_B} ({n_tok} tokens) over a "
+              f"one-rank ring, bf16: taps {tuple(taps.shape)} max|diff|/max|ref| {fwd_rel:.3e}, "
+              f"parameter gradients worst max|diff|/max|ref| {grad_rel:.3e} (bound "
+              f"{ATTN_GRAD_RTOL}); reference launches {ref_launches}; ring launches "
+              f"{sp_launches}; forward + backward {a.elapsed_time(b):.1f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{smi}]")
+        for name in ("long_attention_fwd", "long_attention_dq", "long_attention_dkv"):
+            if ref_launches.get(name, 0) <= 0:
+                raise AssertionError(f"vit_intermediate_layers at {n_tok} tokens launched no {name}")
+        if sp_launches:
+            raise AssertionError(f"the ring path launched {sp_launches}")
+        if not (taps.shape == ref_taps.shape and torch.isfinite(taps).all()
+                and fwd_rel <= ATTN_GRAD_RTOL and grad_rel <= ATTN_GRAD_RTOL):
+            raise AssertionError("vit_forward_sp disagrees with vit_intermediate_layers")
+    finally:
+        pd.destroy()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    print(f"[phase 18] {time.perf_counter() - t0:.1f} s  [{smi}]")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2436,6 +2601,7 @@ def main() -> int:
         xcit_launches = phase_xcit(torch, smi)
         tp_err, tp_photo_t, tp_launches = phase_tp(torch, smi)
         serving_launches = phase_serving(torch, smi, keep)
+        dist_launches = phase_multi_device(torch, smi)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -2449,10 +2615,10 @@ def main() -> int:
                 "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
-    def with_cls(counts, name):  # a main path's launches, phases 12, 14-17's counted in
+    def with_cls(counts, name):  # a main path's launches, phases 12, 14-18's counted in
         return (counts.get(name, 0) + cls_launches.get(name, 0) + full_res_launches.get(name, 0)
                 + xcit_launches.get(name, 0) + tp_launches.get(name, 0)
-                + serving_launches.get(name, 0))
+                + serving_launches.get(name, 0) + dist_launches.get(name, 0))
 
     kernels = [
         entry("attention_fwd", "attention.cu", "dinomc_tpu/ops/pallas/attention.py:162",
@@ -2464,7 +2630,7 @@ def main() -> int:
         entry("photometric", "photometric.cu", "dinomc_tpu/ops/pallas/augment.py:194",
               launches.get("photometric", 0) + convnet_launches.get("photometric", 0)
               + xcit_launches.get("photometric", 0) + tp_launches.get("photometric", 0)
-              + serving_launches.get("photometric", 0),
+              + serving_launches.get("photometric", 0) + dist_launches.get("photometric", 0),
               max(photo_err, tp_err), photo_t["ms"], photo_t["plain_ms"], photo_t["bound"], None),
     ]
     for name, line, key in (("long_attention_fwd", 150, "fwd"), ("long_attention_dq", 174, "dq"),

@@ -16,6 +16,13 @@ with the same directory resumes from the newest file (the reference's
 ``restart_from_checkpoint``, ``utils/utils.py:165-197``). Files are written
 to a temporary name and renamed, so a crash never leaves a half-written
 checkpoint as the newest.
+
+Under a process group every rank calls ``save`` and ``restore``. ``save``
+gathers a sharded DINO state's optimizer moments whole (a collective; the
+modules hold full tensors already, ``core/mesh.shard_dino_state``), rank 0
+alone writes the file in the layout above, and every rank waits at a barrier.
+``restore`` reads the file on every rank and keeps of each split moment this
+rank's block, so a checkpoint written at one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from typing import List, Optional, Union
 
 import torch
 
+from dinomc_tpu_torch.core import mesh as core_mesh
+from dinomc_tpu_torch.parallel import distributed as pd
 from dinomc_tpu_torch.train.cls_trainer import ClsTrainState
 from dinomc_tpu_torch.train.dino_trainer import DinoTrainState
 from dinomc_tpu_torch.train.oscd_trainer import OSCDTrainState
@@ -38,13 +47,16 @@ TrainState = Union[DinoTrainState, SegTrainState, ClsTrainState, OSCDTrainState]
 _ONE_MODEL = (SegTrainState, ClsTrainState, OSCDTrainState)
 
 
-def _load_opt_state(opt_state: dict, saved: dict) -> None:
-    """AdamW's moments and counts, or SGD's momentum buffers."""
+def _load_opt_state(opt_state: dict, saved: dict, mesh=None, placements=None) -> None:
+    """AdamW's moments and counts, or SGD's momentum buffers; a split
+    moment takes this rank's block of the saved whole one."""
     for kind, entries in saved.items():
         if kind == "count":
             opt_state["count"] = dict(entries)
             continue
         for name, t in entries.items():
+            if mesh is not None and placements.get(name) is not None:
+                t = core_mesh.shard(mesh, t, placements[name])
             opt_state[kind][name].copy_(t)
 
 
@@ -60,7 +72,7 @@ def state_to_dict(state: TrainState) -> dict:
         "step": int(state.step),
         "student": state.student.state_dict(),
         "teacher": state.teacher.state_dict(),
-        "opt_state": state.opt_state,
+        "opt_state": core_mesh.full_opt_state(state),
         "center": state.center,
         "generator": state.generator.get_state(),
     }
@@ -69,7 +81,8 @@ def state_to_dict(state: TrainState) -> dict:
 @torch.no_grad()
 def load_state_dict_into(state: TrainState, saved: dict) -> None:
     """Restore ``saved`` into ``state`` in place, on the state's device."""
-    _load_opt_state(state.opt_state, saved["opt_state"])
+    _load_opt_state(state.opt_state, saved["opt_state"], getattr(state, "mesh", None),
+                    getattr(state, "placements", None))
     state.step = int(saved["step"])
     state.generator.set_state(saved["generator"])
     if isinstance(state, _ONE_MODEL):
@@ -86,7 +99,9 @@ class CheckpointManager:
         if best_mode not in (None, "max"):
             raise ValueError(f"best_mode must be None or 'max', got {best_mode!r}")
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        if pd.is_main_process():
+            self.dir.mkdir(parents=True, exist_ok=True)
+        pd.barrier()
         self.max_to_keep = max_to_keep
         self.keep_period = keep_period
         self.best_mode = best_mode
@@ -111,8 +126,15 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState, metric: Optional[float] = None) -> Path:
         path = self.path(step)
+        saved = state_to_dict(state)  # every rank: the gathers are collectives
+        if pd.is_main_process():
+            self._write(path, step, saved, metric)
+        pd.barrier()
+        return path
+
+    def _write(self, path: Path, step: int, saved: dict, metric: Optional[float]) -> None:
         tmp = path.with_suffix(".tmp")
-        torch.save(state_to_dict(state), tmp)
+        torch.save(saved, tmp)
         os.replace(tmp, path)
         steps = self.steps()
         metrics = self.metrics()
@@ -129,7 +151,6 @@ class CheckpointManager:
                 metrics.pop(s, None)
         if metrics:
             self._metrics_path.write_text(json.dumps({str(k): v for k, v in metrics.items()}))
-        return path
 
     def restore(self, state: TrainState) -> bool:
         """Load the newest checkpoint into ``state``; False when there is

@@ -13,7 +13,8 @@ normalized on the device.
 
 The flags are the JAX CLI's plus ``--device``; ``--data_path synthetic``
 needs no dataset. One device: the JAX CLI's data parallelism over every
-chip (``make_mesh``) is not ported yet (ROADMAP.md queue 1 #17). The default
+chip (``make_mesh``) is not ported yet, and a torchrun launch of several
+processes is refused (ROADMAP.md queue 1 #17). The default
 ``--arch resnet50`` runs with its BatchNorm, batch statistics in the train
 step and running statistics in the val pass; XCiT's LPI BatchNorm reads
 each val batch's statistics, as in the JAX package. ``--pretrained_weights``
@@ -96,6 +97,9 @@ def run(args) -> float:
     )
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 
+    from dinomc_tpu_torch.cli.common import refuse_multi_process
+
+    refuse_multi_process("cli.bigearthnet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")

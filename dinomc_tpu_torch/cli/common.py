@@ -1,5 +1,7 @@
 """Shared CLI utilities: bool flags, seeding, run directories, pretrained
-backbones and the per-step record.
+backbones, the per-step record, and the multi-process pieces (the torchrun
+process-group wrapper, the seg CLIs' ``seq`` layout, the fine-tune CLIs'
+refusal of several processes).
 
 Counterpart of ``dinomc_tpu/cli/common.py``, plus ``StepLog``, which the JAX
 CLIs need not have (they keep one loss).
@@ -13,6 +15,50 @@ import random
 
 import numpy as np
 import torch
+
+
+def refuse_multi_process(cli: str) -> None:
+    """The fine-tune CLIs run one process: under a torchrun launch of
+    several (``WORLD_SIZE`` > 1) they would run as independent copies, so
+    they refuse it until their data-parallel path is ported."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        raise NotImplementedError(
+            f"{cli} runs one process; its data-parallel path (WORLD_SIZE={world}) is not "
+            "ported yet (ROADMAP.md queue 1 #17)")
+
+
+def in_process_group(run, args, *rest, **kwargs):
+    """``run(args, ...)`` inside torchrun's process group: joined (and torn
+    down after) when torchrun's environment is set and no group is up yet,
+    used as it is when the caller brought one up, none otherwise. Only rank
+    0 prints (``setup_for_distributed``)."""
+    from dinomc_tpu_torch.parallel import distributed as pd
+
+    owns_group = not pd.is_initialized()
+    if pd.init_distributed_mode(args.device):
+        pd.setup_for_distributed()
+    try:
+        return run(args, *rest, **kwargs)
+    finally:
+        pd.destroy(keep_group=not owns_group)
+
+
+def seq_mesh(seq_parallel: int):
+    """The JAX seg CLIs' layout: ``seq_parallel`` ranks a ring, the world
+    size over it the data axis; None at ``seq_parallel`` 1 (no ring)."""
+    from dinomc_tpu_torch.core.mesh import make_mesh
+    from dinomc_tpu_torch.parallel import distributed as pd
+
+    sp, world = max(1, seq_parallel), pd.get_world_size()
+    if world % sp:
+        raise ValueError(f"--seq_parallel {sp} must divide the world size {world} "
+                         "(the number of processes torchrun starts)")
+    if sp == 1:
+        return None
+    mesh = make_mesh(data=world // sp, seq=sp)
+    print(f"sequence-parallel backbone: mesh {mesh.shape}")
+    return mesh
 
 
 def bool_flag(s: str) -> bool:

@@ -13,7 +13,8 @@ linear-probe protocols on the frozen backbone.
 
 The flags are the JAX CLI's plus ``--device``; ``--data_path synthetic``
 needs no dataset. One device: the JAX CLI's data parallelism over every
-chip (``make_mesh``) is not ported yet (ROADMAP.md queue 1 #17). The
+chip (``make_mesh``) is not ported yet, and a torchrun launch of several
+processes is refused (ROADMAP.md queue 1 #17). The
 default ``--arch resnet50`` and ``wide_resnet50_2`` run with their
 BatchNorm: batch statistics in the train step, running statistics in the
 evaluations and the k-NN and probe features. XCiT runs with its LPI
@@ -104,6 +105,9 @@ def run(args) -> float:
     )
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 
+    from dinomc_tpu_torch.cli.common import refuse_multi_process
+
+    refuse_multi_process("cli.eurosat")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")

@@ -15,8 +15,10 @@ back).
 native resolution, or ``synthetic`` (two 448 px frames from seed 0).
 ``--ckpt`` is as in ``cli/predict.py``: a reference ``.pth`` or a port
 ``train_seg`` checkpoint directory. The flags are the JAX CLI's plus
-``--device``; ``--seq_parallel > 1`` raises with its ROADMAP.md item, a JAX
-orbax directory with the routes to a ``.pth`` (``cli/common.orbax_refusal``).
+``--device``; ``--seq_parallel S`` under ``torchrun`` splits the backbone's
+tokens over S ranks (as ``cli/predict.py``; rank 0 writes the exported
+logits); a JAX orbax directory raises with the routes to a ``.pth``
+(``cli/common.orbax_refusal``).
 Each frame's canvas is copied to the host once, and only with
 ``--export_logits_dir``.
 
@@ -51,7 +53,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--export_logits_dir", default="", type=str)
     p.add_argument("--limit", default=0, type=int)
     p.add_argument("--seq_parallel", default=1, type=int,
-                   help="not ported yet: only 1 is accepted")
+                   help="ranks the backbone's tokens are split over (ring attention); "
+                        "must divide the world size")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device the model runs on (cuda, cuda:N or cpu)")
     return p
@@ -77,8 +80,18 @@ def _samples(args, spec):
 
 def run(args, on_frame: Optional[Callable] = None):
     """Scores of the stitched evaluation. ``on_frame(stem, logits)``, if
-    given, sees each frame's (H, W, C) logit canvas on the device."""
+    given, sees each frame's (H, W, C) logit canvas on the device. Runs in
+    torchrun's process group where there is one."""
+    from dinomc_tpu_torch.cli.common import in_process_group
+
+    return in_process_group(_run, args, on_frame)
+
+
+def _run(args, on_frame: Optional[Callable] = None):
     import torch
+
+    from dinomc_tpu_torch.cli.common import seq_mesh
+    from dinomc_tpu_torch.parallel import distributed as pd
 
     from dinomc_tpu_torch.cli.predict import load_seg_model
     from dinomc_tpu_torch.data import seg_datasets as sd
@@ -90,12 +103,14 @@ def run(args, on_frame: Optional[Callable] = None):
     from dinomc_tpu_torch.ops.augment import normalize, resize
     from dinomc_tpu_torch.train.seg_trainer import seg_predict
 
-    device = torch.device(args.device)
+    mesh = seq_mesh(args.seq_parallel)
+    device = pd.process_device(args.device)
     spec = sd.SPECS[args.dataset]
     model = load_seg_model(args, spec, device)
+    export = args.export_logits_dir if pd.is_main_process() else ""
 
     def predict_fn(x):
-        return seg_predict(model, x)
+        return seg_predict(model, x, mesh)
 
     stats = M.seg_stats_init(spec.num_classes, device)
     meta = {}
@@ -114,8 +129,8 @@ def run(args, on_frame: Optional[Callable] = None):
         if on_frame is not None:
             on_frame(stem, logits)
 
-        if args.export_logits_dir:
-            os.makedirs(args.export_logits_dir, exist_ok=True)
+        if export:
+            os.makedirs(export, exist_ok=True)
             if args.overlap_ratio > 0:
                 coords = grid_coords(H, W, tuple(args.grid), args.overlap_ratio)
             else:
@@ -124,14 +139,14 @@ def run(args, on_frame: Optional[Callable] = None):
             canvas = logits.cpu().numpy()  # the one copy of the frame to the host
             for ci, (y0, y1, x0, x1) in enumerate(coords):
                 r, c = ci // args.grid[1], ci % args.grid[1]
-                np.save(os.path.join(args.export_logits_dir, f"{stem}_{r}_{c}.npy"),
+                np.save(os.path.join(export, f"{stem}_{r}_{c}.npy"),
                         canvas[y0:y1, x0:x1].transpose(2, 0, 1))
         n += 1
         if args.limit and n >= args.limit:
             break
 
-    if args.export_logits_dir:
-        save_metadata(meta, os.path.join(args.export_logits_dir, "patches_metadata.json"))
+    if export:
+        save_metadata(meta, os.path.join(export, "patches_metadata.json"))
     scores = M.seg_stats_finalize(stats)
     print(M.format_class_metrics_table(spec.classes, scores))
     print(f"images: {n}  mIoU {scores['miou']*100:.4f}  mF1 {scores['mf1']*100:.4f}  "

@@ -19,7 +19,8 @@ directory raises with the routes to a ``.pth`` (``cli/common.orbax_refusal``:
 a port checkpoint through ``cli/convert_ckpt``, an orbax directory through the
 JAX CLI ``python -m dinomc_tpu.cli.convert_ckpt``). The flags are the JAX
 CLI's plus ``--device``; one device, so ``--batch_size`` is the batch (the
-JAX CLI's data parallelism over every chip is ROADMAP.md queue 1 #17).
+JAX CLI's data parallelism over every chip is ROADMAP.md queue 1 #17; a
+torchrun launch of several processes is refused).
 
 Run ``python -m dinomc_tpu_torch.cli.oscd --data_path synthetic``.
 """
@@ -158,6 +159,9 @@ def run(args) -> OSCDSummary:
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
     from dinomc_tpu_torch.utils.visualization import save_change_panel
 
+    from dinomc_tpu_torch.cli.common import refuse_multi_process
+
+    refuse_multi_process("cli.oscd")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")

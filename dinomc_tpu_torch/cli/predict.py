@@ -11,8 +11,10 @@ image, whole or tiled with ``--grid``, and save a colour mask and, with
 layout; its decoder widths are read from the file), or a directory of the
 port's own ``train_seg`` checkpoints (``<output_dir>/checkpoints``, the
 counterpart of the JAX package's orbax seg state); without it the weights
-come from seed 0. The flags are the JAX CLI's plus ``--device``. Not ported
-yet, and refused with a pointer to ROADMAP.md: ``--seq_parallel > 1``. A JAX
+come from seed 0. The flags are the JAX CLI's plus ``--device``.
+``--seq_parallel S`` under ``torchrun`` runs the backbone sequence-parallel
+over S ranks (S must divide the world size; the JAX CLI's layout,
+``dinomc_tpu/cli/predict.py:80-90``), and rank 0 writes the outputs. A JAX
 orbax directory as ``--ckpt`` is refused with the routes to a ``.pth``
 (``cli/common.orbax_refusal``).
 
@@ -42,7 +44,8 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--figure", default="", type=str,
                    help="also save a side-by-side legend figure here")
     p.add_argument("--seq_parallel", default=1, type=int,
-                   help="not ported yet: only 1 is accepted")
+                   help="ranks the backbone's tokens are split over (ring attention); "
+                        "must divide the world size")
     p.add_argument("--device", default="cuda", type=str,
                    help="torch device the model runs on (cuda, cuda:N or cpu)")
     return p
@@ -52,7 +55,7 @@ def load_seg_model(args, spec, device):
     """The UPerNet of ``--arch``/``--patch_size`` for ``spec``'s classes on
     ``device``, in eval use: weights from a reference ``.pth``, from the
     newest checkpoint of a port ``train_seg`` checkpoint directory, or from
-    seed 0. Refuses what the port cannot honour yet."""
+    seed 0."""
     import torch
 
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
@@ -62,9 +65,6 @@ def load_seg_model(args, spec, device):
     from dinomc_tpu_torch.models.upernet import UPerNetConfig
     from dinomc_tpu_torch.train.seg_trainer import SegConfig, init_seg_train_state
 
-    if args.seq_parallel > 1:
-        raise NotImplementedError(
-            "--seq_parallel > 1 is not ported yet (ROADMAP.md queue 1 #17, multi-device)")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")
     sd = read_upernet_state_dict(args.ckpt) if args.ckpt.endswith((".pth", ".pt")) else None
@@ -89,16 +89,26 @@ def load_seg_model(args, spec, device):
 
 
 def run(args):
+    """Predict ``--image``, in torchrun's process group where there is one."""
+    from dinomc_tpu_torch.cli.common import in_process_group
+
+    return in_process_group(_run, args)
+
+
+def _run(args):
     import torch
     from PIL import Image
 
+    from dinomc_tpu_torch.cli.common import seq_mesh
+    from dinomc_tpu_torch.parallel import distributed as pd
     from dinomc_tpu_torch.data import seg_datasets as sd
     from dinomc_tpu_torch.eval.tiled_inference import tiled_predict
     from dinomc_tpu_torch.ops.augment import normalize, resize
     from dinomc_tpu_torch.train.seg_trainer import seg_predict
     from dinomc_tpu_torch.utils.visualization import save_segmentation_figure
 
-    device = torch.device(args.device)
+    mesh = seq_mesh(args.seq_parallel)
+    device = pd.process_device(args.device)
     spec = sd.SPECS[args.dataset]
     model = load_seg_model(args, spec, device)
 
@@ -106,7 +116,7 @@ def run(args):
     x = normalize(torch.from_numpy(img).to(device), spec.mean, spec.std)
 
     def predict_fn(batch):
-        return seg_predict(model, batch)
+        return seg_predict(model, batch, mesh)
 
     if args.grid:
         logits = tiled_predict(predict_fn, x, tuple(args.grid), args.model_size)
@@ -116,6 +126,8 @@ def run(args):
         logits = resize(logits, img.shape[:2], "bicubic")[0]
     pred = logits.argmax(-1).to(torch.uint8).cpu().numpy()
 
+    if not pd.is_main_process():
+        return pred
     Image.fromarray(sd.class_to_rgb(pred, spec)).save(args.out)
     print(f"saved color mask to {args.out}")
     if args.figure:

@@ -18,8 +18,21 @@ synthetic`` needs no dataset; ``--data_path`` also takes a SeCo-style tree
 too, under its own remat (``--remat_policy`` is the ViT's). ``--data_mode
 tp`` (DINO-TP: three timestamps a location, three global crops) runs from
 synthetic data, image trees and packed corpora; ``--bands B4 B3 B2`` reads
-multispectral Sentinel-2 bands. Not ported yet, and refused with a pointer
-to ROADMAP.md: ``--model_parallel`` and ``--fsdp`` (multi-device).
+multispectral Sentinel-2 bands.
+
+Multi-card runs: ``torchrun --nproc_per_node N -m
+dinomc_tpu_torch.cli.train_dino ...`` runs one process a card (NCCL; gloo
+with ``--device cpu``), as the JAX CLI's flow does
+(``dinomc_tpu/cli/train_dino.py:167-176,215-222``): the ranks form a
+``data x model`` mesh (``--model_parallel M`` must divide the world size,
+and splits the DINO head's last layer over M ranks), each rank loads its
+shard of the data (``ShardedSampler``), the global batch is
+``--batch_size_per_gpu`` times the world size and scales the lr, and every
+rank draws the global batch's augmentation and keeps its rows. ``--fsdp
+true`` splits the optimizer moments of the sizeable tensors over the data
+axis (ZeRO); at data size 1 it is plain training, as in JAX. Logs and
+checkpoints come from rank 0 only. Without torchrun's environment the
+process runs alone.
 """
 
 from __future__ import annotations
@@ -106,14 +119,17 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    unported = [
-        (args.model_parallel > 1, "--model_parallel", "queue 1 #17 (multi-device)"),
-        (args.fsdp, "--fsdp", "queue 1 #17 (multi-device)"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md {item})")
+def rank_rows(draw, rank: int, rows: int):
+    """This rank's rows [rank * rows, (rank + 1) * rows) of every tensor in
+    a ``CropDraw`` list or a ``TPDraw`` drawn for the global batch."""
+    def cut(t):
+        return t.narrow(0, rank * rows, rows)
+
+    if isinstance(draw, list):
+        return [dataclasses.replace(d, boxes=cut(d.boxes), params=cut(d.params)) for d in draw]
+    return dataclasses.replace(
+        draw, global_boxes=[cut(b) for b in draw.global_boxes],
+        photo=[cut(p) for p in draw.photo], local_boxes=[cut(b) for b in draw.local_boxes])
 
 
 class _SyntheticImages:
@@ -133,7 +149,7 @@ class _SyntheticImages:
         return rng.rand(self.size, self.size, 3).astype(np.float32)
 
 
-def _dataset(args):
+def _dataset(args, world: int = 1):
     """The JAX CLI's routing (``dinomc_tpu/cli/train_dino.py:187-211``):
     synthetic; a packed corpus; ``MCTemporal`` for tp; ``MCBase``, then a
     flat image folder."""
@@ -149,7 +165,8 @@ def _dataset(args):
             "defined on 3 channels, as the reference's RGB transforms are"
         )
     if args.data_path == "synthetic":
-        return _SyntheticImages(max(args.batch_size_per_gpu * 4, 64), args.image_size, temporal)
+        return _SyntheticImages(max(args.batch_size_per_gpu * world * 4, 64), args.image_size,
+                                temporal)
     if packed.is_packed(args.data_path):
         # decode-once shards: uint8 across PCIe, f32/255 on the device
         if temporal:
@@ -233,6 +250,14 @@ def build_schedules(args, global_batch: int, niter_per_ep: int):
 
 
 def train_dino(args) -> TrainSummary:
+    """Run pretraining, in torchrun's process group where there is one
+    (``cli/common.in_process_group``)."""
+    from dinomc_tpu_torch.cli.common import in_process_group
+
+    return in_process_group(_train_dino, args)
+
+
+def _train_dino(args) -> TrainSummary:
     import torch
 
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
@@ -244,22 +269,30 @@ def train_dino(args) -> TrainSummary:
     from dinomc_tpu_torch.train.dino_trainer import (
         dino_train_step_accum, init_dino_train_state,
     )
+    from dinomc_tpu_torch.core.mesh import make_mesh, shard_dino_state
+    from dinomc_tpu_torch.parallel import distributed as pd
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger
 
-    _refuse_unported(args)
-    device = torch.device(args.device)
+    world, rank = pd.get_world_size(), pd.get_rank()
+    tp = max(1, args.model_parallel)
+    if world % tp:
+        raise ValueError(f"--model_parallel {tp} must divide the world size {world} "
+                         "(the number of processes torchrun starts)")
+    device = pd.process_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")
-    set_seed(args.seed)
+    set_seed(args.seed + rank)
+    mesh = make_mesh(data=world // tp, model=tp)
     temporal = args.data_mode == "tp"
     accum = max(1, args.grad_accum_steps)
     assert args.batch_size_per_gpu % accum == 0, (
         f"grad_accum_steps={accum} must divide batch_size_per_gpu={args.batch_size_per_gpu}"
     )
 
-    dataset = _dataset(args)
-    global_batch = args.batch_size_per_gpu
-    sampler = ShardedSampler(len(dataset), global_batch, seed=args.seed)
+    dataset = _dataset(args, world)
+    b = args.batch_size_per_gpu
+    global_batch = b * world
+    sampler = ShardedSampler(len(dataset), b, num_shards=world, shard_id=rank, seed=args.seed)
     loader = PrefetchLoader(dataset, sampler, device=device, prefetch=2,
                             num_threads=max(1, args.num_workers))
     niter_per_ep = max(len(loader), 1)
@@ -275,8 +308,13 @@ def train_dino(args) -> TrainSummary:
     if ckpt.restore(state):
         start_epoch = state.step // niter_per_ep
         print(f"resumed from step {state.step} (epoch {start_epoch})")
+    # head-TP placements over 'model' (+ ZeRO over 'data' with --fsdp);
+    # nothing is split at model_parallel 1 without --fsdp, or alone
+    shard_dino_state(mesh, state, fsdp=args.fsdp)
+    if world > 1:
+        print(f"mesh {mesh.shape}, global batch {global_batch}")
 
-    logger = JsonlLogger(f"{args.output_dir}/log.txt")
+    logger = JsonlLogger(f"{args.output_dir}/log.txt") if pd.is_main_process() else None
     aug_gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     steps = StepLog(timed=device.type == "cuda")
     last_loss = float("nan")  # the last print step's, carried across epochs
@@ -291,12 +329,14 @@ def train_dino(args) -> TrainSummary:
         ):
             start = steps.begin()
             B, (H, W) = batch.shape[0], batch.shape[-3:-1]
+            # every rank draws for the global batch and keeps its rows
             if temporal:  # (B, 4, H, W, 3)
-                draws = draw_multicrop_tp(aug_gen, B, H, W, mc_cfg, device=device)
-                g, locals_ = multicrop_augment_tp(batch, draws, mc_cfg, batch_first=True)
+                draws = draw_multicrop_tp(aug_gen, B * world, H, W, mc_cfg, device=device)
+                g, locals_ = multicrop_augment_tp(batch, rank_rows(draws, rank, B), mc_cfg,
+                                                  batch_first=True)
             else:
-                draws = draw_multicrop(aug_gen, B, H, W, mc_cfg, device=device)
-                g, locals_ = multicrop_augment(batch, draws, mc_cfg)
+                draws = draw_multicrop(aug_gen, B * world, H, W, mc_cfg, device=device)
+                g, locals_ = multicrop_augment(batch, rank_rows(draws, rank, B), mc_cfg)
             metrics = dino_train_step_accum(state, g, locals_, sch, cfg, accum=accum)
             steps.end(metrics["loss"], start)
             if it % args.print_freq == 0:
@@ -310,9 +350,11 @@ def train_dino(args) -> TrainSummary:
             if args.max_steps and state.step >= args.max_steps:
                 done = True
                 break
+        metric_logger.synchronize_between_processes()
         ckpt.save(state.step, state)
-        logger.write({"epoch": epoch, "train_loss": last_loss, "step": state.step,
-                      "time": time.time()})
+        if logger is not None:
+            logger.write({"epoch": epoch, "train_loss": last_loss, "step": state.step,
+                          "time": time.time()})
         if done:
             break
     steps.flush()

@@ -15,8 +15,14 @@ Facebook DINO/DeiT files); ``--data_root
 synthetic`` needs no dataset. An orbax checkpoint directory as
 ``--pretrained_ckpt`` is refused with the routes to a ``.pth``
 (``cli/common.orbax_refusal``: a reference file, a port checkpoint through
-``cli/convert_ckpt``, an orbax directory through the JAX CLI); ``--seq_parallel
-> 1`` is not ported yet and refused with a pointer to ROADMAP.md.
+``cli/convert_ckpt``, an orbax directory through the JAX CLI).
+
+``--seq_parallel S`` under ``torchrun --nproc_per_node N`` (S must divide N;
+the JAX CLI's layout, ``dinomc_tpu/cli/train_seg.py:103-111,197-206``) runs
+the ViT backbone sequence-parallel over S ranks (ring attention), the batch
+split over the N / S data ranks where it divides; every rank loads the same
+batches and takes the same step, and rank 0 writes the logs, the CSV and
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import List
 
 import numpy as np
 
-from dinomc_tpu_torch.cli.common import bool_flag, orbax_refusal
+from dinomc_tpu_torch.cli.common import bool_flag, orbax_refusal, seq_mesh
 
 
 def get_args_parser() -> argparse.ArgumentParser:
@@ -100,9 +106,6 @@ class SegSummary:
 
 
 def _refuse_unported(args) -> None:
-    if args.seq_parallel > 1:
-        raise NotImplementedError(
-            "--seq_parallel > 1 is not ported yet (ROADMAP.md queue 1 #17, multi-device)")
     if args.pretrained_ckpt and not args.pretrained_ckpt.endswith((".pth", ".pt")):
         raise orbax_refusal(f"--pretrained_ckpt {args.pretrained_ckpt}")
 
@@ -130,6 +133,14 @@ def _load_pretrained(state, args) -> None:
 
 
 def train_seg(args) -> SegSummary:
+    """Run fine-tuning, in torchrun's process group where there is one
+    (``cli/common.in_process_group``)."""
+    from dinomc_tpu_torch.cli.common import in_process_group
+
+    return in_process_group(_train_seg, args)
+
+
+def _train_seg(args) -> SegSummary:
     import torch
 
     from dinomc_tpu_torch.ckpt.checkpoint import CheckpointManager
@@ -143,12 +154,17 @@ def train_seg(args) -> SegSummary:
     )
     from dinomc_tpu_torch.utils.logging import JsonlLogger, MetricLogger, WandbLogger, write_epoch_csv
 
+    from dinomc_tpu_torch.parallel import distributed as pd
+
     _refuse_unported(args)
-    device = torch.device(args.device)
+    mesh = seq_mesh(args.seq_parallel)
+    device = pd.process_device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but torch sees no CUDA device")
     set_seed(args.seed)
-    os.makedirs(args.output_dir, exist_ok=True)
+    main = pd.is_main_process()
+    if main:
+        os.makedirs(args.output_dir, exist_ok=True)
     spec = sd.SPECS[args.dataset]
     train_ds, val_ds = _datasets(args, spec)
 
@@ -169,9 +185,9 @@ def train_seg(args) -> SegSummary:
     niter = max(len(train_ds) // args.batch_size, 1)
     lrs = cosine_scheduler(args.lr, 1e-6, args.epochs, niter)
     ckpt = CheckpointManager(f"{args.output_dir}/checkpoints", max_to_keep=1, best_mode="max")
-    logger = JsonlLogger(f"{args.output_dir}/log.txt")
+    logger = JsonlLogger(f"{args.output_dir}/log.txt") if main else None
     wb = WandbLogger(args.wandb_project, name=f"{args.dataset}_{args.arch}",
-                     config=vars(args), enabled=bool(args.wandb))
+                     config=vars(args), enabled=bool(args.wandb) and main)
     aug_gen = torch.Generator(device=device).manual_seed(args.seed)
     best_miou, start_epoch = 0.0, 0
     # resume from this run's newest checkpoint (the reference seg trainers
@@ -192,7 +208,7 @@ def train_seg(args) -> SegSummary:
             draws = sd.draw_seg_augment(aug_gen, imgs.shape[0], spec, device)
             imgs, msks = sd.augment_batch(imgs, msks, spec, draws)
             m = seg_train_step(state, imgs, msks, float(lrs[min(state.step, len(lrs) - 1)]),
-                               args.weight_decay, cfg)
+                               args.weight_decay, cfg, mesh=mesh)
             steps.end(m["loss"], start)
             if state.step % args.print_freq == 0:
                 loss = float(m["loss"])  # host sync
@@ -208,12 +224,13 @@ def train_seg(args) -> SegSummary:
         stats = M.seg_stats_init(spec.num_classes, device)
         for images, masks in val_ds.batches(args.batch_size, seed=0):
             imgs, _ = sd.augment_batch(torch.from_numpy(images).to(device), None, spec)
-            logits = seg_predict(state.model, imgs)
+            logits = seg_predict(state.model, imgs, mesh)
             stats = M.seg_stats_update(stats, logits.argmax(-1), torch.from_numpy(masks).to(device))
         scores = M.seg_stats_finalize(stats)
         print(M.format_class_metrics_table(spec.classes, scores))
-        logger.write({"epoch": epoch, "miou": scores["miou"], "mf1": scores["mf1"],
-                      "acc": scores["acc"]})
+        if logger is not None:
+            logger.write({"epoch": epoch, "miou": scores["miou"], "mf1": scores["mf1"],
+                          "acc": scores["acc"]})
         if wb.active:
             # per-class IoU/F1 panels, as the reference logs them
             # (train_dino_mc_seg.py:171-185)
@@ -222,12 +239,13 @@ def train_seg(args) -> SegSummary:
                     **{f"val/iou_{c}": v for c, v in zip(spec.classes, scores["iou"])},
                     **{f"val/f1_{c}": v for c, v in zip(spec.classes, scores["f1"])}},
                    step=epoch)
-        write_epoch_csv(
-            f"{args.output_dir}/metrics.csv", epoch,
-            {"miou": scores["miou"], "mf1": scores["mf1"], "acc": scores["acc"]},
-            per_class={"iou": scores["iou"], "f1": scores["f1"]},
-            class_names=spec.classes,
-        )
+        if main:
+            write_epoch_csv(
+                f"{args.output_dir}/metrics.csv", epoch,
+                {"miou": scores["miou"], "mf1": scores["mf1"], "acc": scores["acc"]},
+                per_class={"iou": scores["iou"], "f1": scores["f1"]},
+                class_names=spec.classes,
+            )
         if scores["miou"] >= best_miou:
             best_miou = scores["miou"]
             ckpt.save(epoch, state, metric=scores["miou"])

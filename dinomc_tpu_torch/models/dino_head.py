@@ -14,7 +14,16 @@ hidden linear layer, and the reference's Sequential indices shift: Linear
 at ``mlp.0``, ``mlp.3``, ``mlp.6``, BatchNorm at ``mlp.1``, ``mlp.4``. As in
 the JAX head, it always normalizes by the statistics of the rows of one
 head pass (the teacher's too), in f32 with the biased variance and eps
-1e-5, and keeps no running statistics.
+1e-5, and keeps no running statistics. In a distributed step
+(``parallel/distributed.batch_shard``) those statistics are the global
+batch's: the mean, then the variance, all-reduced over the ranks that split
+the batch (SyncBN).
+
+Under head tensor parallelism (a mesh whose model axis is > 1) the
+bottleneck features of the model group's ranks are all-gathered (the
+gather's backward reduce-scatters), and each rank multiplies them by its
+out_dim block of the weight-normed layer. Weight norm is per output unit, so
+a block needs no communication.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dinomc_tpu_torch.models.vit import Linear, linear, trunc_normal
+from dinomc_tpu_torch.parallel import distributed as pd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +90,11 @@ class DINOHead(nn.Module):
         return dino_head_forward(self, x)
 
 
-def dino_head_forward(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
-    """x (B, in_dim) f32 -> logits (B, out_dim) f32."""
+def dino_head_forward(head: DINOHead, x: torch.Tensor, mesh=None, n_crops: int = 1) -> torch.Tensor:
+    """x (B, in_dim) f32 -> logits (B, out_dim) f32. On a ``mesh`` with a
+    model axis of M > 1, x holds this rank's ``n_crops`` crops of b rows,
+    crop-major, and the result is (n_crops * M * b, out_dim / M): the model
+    group's rows of each crop (rank-major) at this rank's out_dim block."""
     dt = head.cfg.compute_dtype
     y = x.to(dt)
     for m in head.mlp:
@@ -89,13 +102,19 @@ def dino_head_forward(head: DINOHead, x: torch.Tensor) -> torch.Tensor:
             y = linear(y, m)
         elif isinstance(m, BatchNorm):
             y32 = y.float()
-            mean = y32.mean(dim=0, keepdim=True)
-            var = (y32 - mean).square().mean(dim=0, keepdim=True)
+            mean = pd.batch_mean(y32.mean(dim=0, keepdim=True))
+            var = pd.batch_mean((y32 - mean).square().mean(dim=0, keepdim=True))
             y = ((y32 - mean) * torch.rsqrt(var + 1e-5) * m.weight + m.bias).to(dt)
         else:
             y = F.gelu(y, approximate="none")
     y = y.float()
     y = y / y.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    v = head.last_layer.weight_v
-    w = v / v.norm(dim=1, keepdim=True).clamp_min(1e-12) * head.last_layer.weight_g
+    v, g = head.last_layer.weight_v, head.last_layer.weight_g
+    if mesh is not None and mesh.size("model") > 1:
+        M, rank = mesh.size("model"), mesh.index("model")
+        y = pd.all_gather(y, 0, mesh.group("model"))  # (M * n_crops * b, bottleneck)
+        y = y.reshape(M, n_crops, -1, y.shape[-1]).transpose(0, 1).reshape(-1, y.shape[-1])
+        k = v.shape[0] // M
+        v, g = v.narrow(0, rank * k, k), g.narrow(0, rank * k, k)
+    w = v / v.norm(dim=1, keepdim=True).clamp_min(1e-12) * g
     return (y.to(dt) @ w.to(dt).t()).float()

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dinomc_tpu_torch.ops.augment import resize_weights
+from dinomc_tpu_torch.parallel import distributed as pd
 
 
 def _he_normal(shape, gen: Optional[torch.Generator]) -> nn.Parameter:
@@ -77,14 +78,17 @@ def bn_apply(
     y = x * a + b with per-channel a, b folded in f32 and applied in x's
     dtype. In training the running statistics move in place, with the
     unbiased variance and ``momentum`` in JAX's convention (0.9 keeps 90%
-    of the old value, torch's momentum 0.1)."""
+    of the old value, torch's momentum 0.1). In a distributed step
+    (``parallel/distributed.batch_shard``) E[x] and E[x^2] are the global
+    batch's, all-reduced differentiably (SyncBN), so the running statistics
+    move alike on every rank."""
     if train:
         x32 = x.float()
         dims = (0, 2, 3)
-        mean = x32.mean(dim=dims)
-        var = (x32.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+        mean = pd.batch_mean(x32.mean(dim=dims))
+        var = (pd.batch_mean(x32.square().mean(dim=dims)) - mean.square()).clamp_min(0.0)
         with torch.no_grad():
-            n = x.numel() // x.shape[1]
+            n = x.numel() // x.shape[1] * pd.batch_count()
             bn.running_mean.mul_(momentum).add_((1 - momentum) * mean)
             bn.running_var.mul_(momentum).add_((1 - momentum) * var * (n / max(n - 1, 1)))
             bn.num_batches_tracked.add_(1)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from dinomc_tpu_torch.models.vit import LayerNorm, Linear, _drop_path, layer_norm, linear, patchify, trunc_normal
 from dinomc_tpu_torch.ops.hopper.window_attention import window_attention
+from dinomc_tpu_torch.parallel import distributed as pd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,7 +251,7 @@ def drop_path_masks(cfg: SwinConfig, batch: int, generator: torch.Generator, dev
     """Every (block, branch, sample) keep-decision in one draw: (blocks, 2, B) bool."""
     keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, cfg.num_blocks, device=device)
     keep_p = keeps.reshape(-1, 1, 1).expand(cfg.num_blocks, 2, batch)
-    return torch.bernoulli(keep_p, generator=generator).bool()
+    return pd.global_bernoulli(keep_p, generator, 2).bool()
 
 
 def swin_forward(

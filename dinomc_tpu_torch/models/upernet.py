@@ -15,6 +15,12 @@ dict that ``dinomc_tpu.ckpt.torch_export.upernet_state_dict`` writes loads
 with ``strict=True``. Images and logits are NHWC at ``upernet_forward``, as
 in the JAX package; the decoder runs NCHW.
 BatchNorm running statistics move in place during a training forward.
+
+With a ``mesh`` whose ``seq`` axis is > 1 (``core/mesh.py``) the backbone
+runs sequence-parallel (``models/vit.vit_forward_sp``: ring attention over
+token blocks, the batch also split over ``data`` where it divides), as JAX
+``dino_pyramid`` does (``dinomc_tpu/models/upernet.py:162-173``); its taps
+are gathered back, so the decoder sees the whole batch on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from dinomc_tpu_torch.models.vit import (
     VIT_FACTORIES,
     VisionTransformer,
     ViTConfig,
+    vit_forward_sp,
     vit_intermediate_layers,
 )
 
@@ -97,14 +104,19 @@ class UPerNet(nn.Module):
         self.auxiliary_head = aux
 
 
-def dino_pyramid(model: UPerNet, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+def dino_pyramid(model: UPerNet, x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, ...]:
     """(B, H, W, 3) images -> four (B, D, h, w) maps at strides {4, 8, 16, 32}
     of the patch grid, in the compute dtype (reference
     ``DinoMCBackbone.forward``, ``networks.py:208-241``). The taps are the
-    raw block outputs, not final-LayerNormed."""
+    raw block outputs, not final-LayerNormed. ``mesh`` with seq > 1: the
+    sequence-parallel backbone."""
     cfg = model.cfg
     B, H, W, _ = x.shape
-    taps = vit_intermediate_layers(model.backbone.vit, x, cfg.out_indices, apply_norm=False)
+    if mesh is not None and mesh.size("seq") > 1:
+        taps = vit_forward_sp(model.backbone.vit, x, mesh, out_indices=cfg.out_indices,
+                              apply_norm=False)
+    else:
+        taps = vit_intermediate_layers(model.backbone.vit, x, cfg.out_indices, apply_norm=False)
     Hf, Wf = H // cfg.patch_size, W // cfg.patch_size
     sizes = [(2 * Hf, 2 * Wf), (Hf, Wf), (Hf // 2, Wf // 2), (Hf // 4, Wf // 4)]
     pyramid = []
@@ -155,6 +167,7 @@ def upernet_forward(
     with_aux: bool = False,
     stop_backbone_grad: bool = False,
     drop_masks: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ):
     """'whole'-mode forward of (B, H, W, 3) images. Returns logits
     (B, H, W, num_classes) f32, and the auxiliary logits as well with
@@ -164,14 +177,15 @@ def upernet_forward(
 
     ``stop_backbone_grad`` runs the backbone without autograd, so the
     backward stops at the pyramid and skips the whole ViT (decoder-only
-    fine-tuning, the reference's ``train_backbone=False``)."""
+    fine-tuning, the reference's ``train_backbone=False``). ``mesh``: see
+    ``dino_pyramid``."""
     cfg = model.cfg
     hw_in = x.shape[1:3]
     if stop_backbone_grad:
         with torch.no_grad():
-            pyramid = dino_pyramid(model, x)
+            pyramid = dino_pyramid(model, x, mesh)
     else:
-        pyramid = dino_pyramid(model, x)
+        pyramid = dino_pyramid(model, x, mesh)
 
     if cfg.use_fpn_neck:
         pyramid = tuple(

@@ -44,8 +44,12 @@ blocks through the same block path (K1 on a card) and the last block's
 attention densely with its probabilities, as the JAX package does outside
 Pallas.
 
-Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi`` and
-``vit_forward_sp``.
+``vit_forward_sp`` is the sequence-parallel forward (JAX ``vit_forward_sp``):
+the tokens split over the mesh's ``seq`` ranks, attention as ring attention
+(``ops/ring_attention.py``), the batch also split over ``data`` where it
+divides.
+
+Not ported yet (ROADMAP.md queue 1 #3): ``vit_forward_multi``.
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from torch.utils.checkpoint import (
 from dinomc_tpu_torch.ops import remat
 from dinomc_tpu_torch.ops.attention import mha
 from dinomc_tpu_torch.ops.hopper.fused_mlp import fused_mlp
+from dinomc_tpu_torch.parallel import distributed as pd
 
 # What each remat policy keeps (the JAX package's ``_remat_block``).
 REMAT_POLICIES = {
@@ -105,6 +110,12 @@ class ViTConfig:
     # names (REMAT_POLICIES; module docstring).
     remat: bool = True
     remat_policy: str = "attn"
+    # 'auto' (the kernels) or 'ring' (sequence parallel: ``attn_group`` the
+    # ring's process group, ``attn_n_valid`` the real tokens); set by
+    # ``vit_forward_sp``
+    attn_impl: str = "auto"
+    attn_n_valid: Optional[int] = None
+    attn_group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.mlp_impl not in MLP_IMPLS:
@@ -382,14 +393,19 @@ def _remat(cfg: ViTConfig, fn, *args):
                       context_fn=remat_contexts(REMAT_POLICIES[cfg.remat_policy]))
 
 
-def _attention(x: torch.Tensor, attn: Attention, num_heads: int, boundary: int):
+def _attention(x: torch.Tensor, attn: Attention, cfg: ViTConfig, boundary: int):
     B, N, D = x.shape
+    num_heads = cfg.num_heads
     hd = D // num_heads
     w, b = attn.qkv.weight.to(x.dtype), attn.qkv.bias.to(x.dtype)
     with _named("qkv"):
         qkv = F.linear(x, w, b)
     q, k, v = qkv.reshape(B, N, 3, num_heads, hd).unbind(2)  # strided (B, N, h, hd) views
-    out = mha(q, k, v, 1.0 / math.sqrt(hd), boundary=boundary)
+    if cfg.attn_impl == "ring":
+        out = mha(q, k, v, 1.0 / math.sqrt(hd), impl="ring", group=cfg.attn_group,
+                  n_valid=cfg.attn_n_valid)
+    else:
+        out = mha(q, k, v, 1.0 / math.sqrt(hd), boundary=boundary)
     return linear(out.reshape(B, N, D), attn.proj)
 
 
@@ -437,7 +453,7 @@ def _drop_path(x: torch.Tensor, keep: torch.Tensor, mask: torch.Tensor, boundary
 def _block(x, blk: Block, cfg: ViTConfig, keep, masks, boundary: int):
     """One pre-norm block; ``masks`` (2, B[, 2]) or None (no DropPath)."""
     eps = cfg.layernorm_eps
-    y = _attention(layer_norm(x, blk.norm1, eps), blk.attn, cfg.num_heads, boundary)
+    y = _attention(layer_norm(x, blk.norm1, eps), blk.attn, cfg, boundary)
     if masks is not None:
         y = _drop_path(y, keep, masks[0], boundary)
     x = x + y
@@ -471,7 +487,7 @@ def drop_path_masks(
     keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, device=device)
     shape = (cfg.depth, 2, batch) + ((2,) if packed else ())
     keep_p = keeps.reshape((cfg.depth, 1, 1) + ((1,) if packed else ())).expand(shape)
-    return torch.bernoulli(keep_p, generator=generator).bool()
+    return pd.global_bernoulli(keep_p, generator, 2).bool()
 
 
 def _run_blocks(vit, tokens, generator, deterministic, dp_masks, boundary=0):
@@ -548,6 +564,72 @@ def vit_intermediate_layers(
     if apply_norm:
         out = [layer_norm(t, vit.norm, cfg.layernorm_eps) for t in out]
     return torch.stack([t.float() for t in out])
+
+
+def vit_forward_sp(
+    vit: VisionTransformer,
+    x: torch.Tensor,
+    mesh,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    out_indices: Optional[Sequence[int]] = None,
+    apply_norm: bool = True,
+) -> torch.Tensor:
+    """Sequence-parallel forward over the ``seq`` ranks of ``mesh``
+    (``core/mesh.py``), JAX ``vit_forward_sp``: every rank runs
+    ``prepare_tokens`` on the whole batch, pads the N+1 tokens to a multiple
+    of the ring's length (keys past N+1 masked) and runs the blocks on its
+    token block with ring attention; where the ``data`` size divides B, each
+    data rank takes its block of the batch. The results are all-gathered
+    back (the gathers' backward reduce-scatters), so every rank returns the
+    whole, with gradients:
+
+    ``out_indices=None``: the final-LN CLS token (B, D) f32, as
+    ``vit_forward``; else (len(out_indices), B, N+1, D) f32, as
+    ``vit_intermediate_layers``. DropPath (``deterministic`` False, from
+    ``generator``) draws the whole batch's keep-decisions and keeps the
+    rank's rows, so the token blocks of a sample agree."""
+    cfg = vit.cfg
+    n_seq, s_idx = mesh.size("seq"), mesh.index("seq")
+    tokens = prepare_tokens(vit, x)  # (B, N+1, D)
+    B, N1, D = tokens.shape
+    Np = -(-N1 // n_seq) * n_seq
+    if Np != N1:
+        tokens = F.pad(tokens, (0, 0, 0, Np - N1))
+    n_data = mesh.size("data")
+    split = n_data > 1 and B % n_data == 0
+    b0, b = (mesh.index("data") * (B // n_data), B // n_data) if split else (0, B)
+    nl = Np // n_seq
+    h = tokens.narrow(0, b0, b).narrow(1, s_idx * nl, nl)
+    cfg_sp = dataclasses.replace(cfg, attn_impl="ring", attn_n_valid=N1 if Np != N1 else None,
+                                 attn_group=mesh.group("seq"))
+
+    keeps = 1.0 - torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, device=h.device)
+    dp_masks = None
+    if not deterministic and generator is not None:
+        dp_masks = drop_path_masks(cfg, B, False, generator, h.device).narrow(2, b0, b)
+    taps = []
+    last = cfg.depth - 1 if out_indices is None else max(out_indices)
+    for i, blk in enumerate(vit.blocks[: last + 1]):
+        masks = None if dp_masks is None else dp_masks[i]
+        h = _remat(cfg_sp, _block, h, blk, cfg_sp, keeps[i], masks, 0)
+        taps.append(h)
+
+    def gather(t, token_dim, batch_dim):
+        if mesh.group("seq") is not None:
+            t = pd.all_gather(t, token_dim, mesh.group("seq"))
+        if split:
+            t = pd.all_gather(t, batch_dim, mesh.group("data"))
+        return t
+
+    if out_indices is None:
+        out = layer_norm(h, vit.norm, cfg.layernorm_eps).float()
+        return gather(out, 1, 0)[:, 0]
+    out = [taps[i] for i in out_indices]
+    if apply_norm:
+        out = [layer_norm(t, vit.norm, cfg.layernorm_eps) for t in out]
+    out = torch.stack([t.float() for t in out])
+    return gather(out, 2, 1)[:, :, :N1]
 
 
 def vit_last_selfattention(vit: VisionTransformer, x: torch.Tensor) -> torch.Tensor:

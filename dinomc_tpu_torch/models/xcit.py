@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dinomc_tpu_torch.models.layers import Conv2d
 from dinomc_tpu_torch.models.vit import LayerNorm, Linear, _named, layer_norm, linear, remat_contexts, trunc_normal
+from dinomc_tpu_torch.parallel import distributed as pd
 
 REMAT_POLICIES = {"full": (), "branches": ("xca_out", "lpi_out")}
 
@@ -240,13 +241,14 @@ def _lpi(t: torch.Tensor, blk: XCABlock, gh: int, gw: int, gelu_approx: bool) ->
     """Local patch interaction on the (gh, gw) token grid: depthwise 3x3
     conv, GELU, BatchNorm by the batch's statistics (one-pass f32 moments,
     variance clamped at 0, folded to x * a + b in t's dtype), depthwise 3x3
-    conv. (B, N, D) -> (B, N, D)."""
+    conv. (B, N, D) -> (B, N, D). The moments are the global batch's in a
+    distributed step (``parallel/distributed.batch_mean``)."""
     B, N, D = t.shape
     x = t.reshape(B, gh, gw, D).permute(0, 3, 1, 2)  # NCHW, channels-last strides
     x = _gelu(conv_same(x, blk.lpi_conv1, groups=D), gelu_approx)
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = (x32.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+    mean = pd.batch_mean(x32.mean(dim=(0, 2, 3)))
+    var = (pd.batch_mean(x32.square().mean(dim=(0, 2, 3))) - mean.square()).clamp_min(0.0)
     a = blk.lpi_bn.weight * torch.rsqrt(var + 1e-5)
     b = blk.lpi_bn.bias - mean * a
     x = x * a.to(x.dtype).view(1, D, 1, 1) + b.to(x.dtype).view(1, D, 1, 1)
@@ -320,8 +322,8 @@ def drop_path_masks(
     keep = 1.0 - cfg.drop_path_rate
     blk = torch.full((cfg.depth, 3, batch), keep, device=device)
     cls = torch.full((cfg.cls_attn_layers, 2, batch), keep, device=device)
-    return (torch.bernoulli(blk, generator=generator).bool(),
-            torch.bernoulli(cls, generator=generator).bool())
+    return (pd.global_bernoulli(blk, generator, 2).bool(),
+            pd.global_bernoulli(cls, generator, 2).bool())
 
 
 def xcit_forward(

@@ -8,8 +8,10 @@ lengths up to ``MAX_FUSED_LEN`` take the fused kernel
 stands in for the stock TPU flash kernel the JAX package calls past 5120
 tokens, so its three length tiers become two. ``dense_attention`` is the
 reference formulation, held against the JAX package's by the tests and
-called by nothing on the main path. The JAX package's ``ring`` route is not
-ported yet (ROADMAP.md multi-device #17).
+called by nothing on the main path. ``impl='ring'`` takes the sequence-
+parallel route, as in JAX: q, k and v are this rank's token blocks and
+``ops/ring_attention.ring_attention`` runs over the ring's process group,
+``n_valid`` masking a padded tail.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from dinomc_tpu_torch.ops.hopper.attention import MAX_FUSED_LEN, _pad_len, fused_mha
 from dinomc_tpu_torch.ops.hopper.attention_long import long_mha
+from dinomc_tpu_torch.ops.ring_attention import ring_attention
 
 
 def dense_attention(
@@ -46,13 +49,25 @@ def mha(
     v: torch.Tensor,
     scale: Optional[float] = None,
     boundary: int = 0,
+    impl: str = "auto",
+    group=None,
+    n_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """Multi-head attention over (B, N, heads, head_dim): the fused kernel
     (``fused_mha``) for padded N <= ``MAX_FUSED_LEN``, the long-sequence
     kernel (``long_mha``) above it; each runs its plain version on CPU
-    tensors. Crop packing (``boundary``) exists only on the fused route."""
+    tensors. Crop packing (``boundary``) exists only on the fused route.
+    ``impl='ring'``: ring attention over ``group`` (``n_valid`` real
+    tokens), no crop packing."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if impl == "ring":
+        if boundary:
+            raise ValueError("crop packing (boundary) is not supported with ring attention")
+        return ring_attention(q, k, v, scale, group, n_valid)
+    if n_valid is not None:
+        raise ValueError(f"n_valid (={n_valid}) masking exists only for impl='ring' "
+                         f"(got impl={impl!r})")
     if _pad_len(q.shape[1]) <= MAX_FUSED_LEN:
         return fused_mha(q, k, v, scale, boundary)
     if boundary:

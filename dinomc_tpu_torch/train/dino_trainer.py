@@ -31,6 +31,31 @@ before the next, the gradients summed and divided by ``accum``, every
 microbatch's loss against the pre-step centre, one centre EMA from the mean
 of the microbatches' teacher centres, then one ``_finish_step``.
 
+On a process mesh (``core/mesh.shard_dino_state`` records one in the
+state; torchrun, one process a card) the step is one step of the global
+batch, which the ranks split over data and model:
+
+  * the forwards and ``autograd.grad`` run inside
+    ``parallel/distributed.batch_shard``: BatchNorm moments are the global
+    batch's (SyncBN) and DropPath keeps this rank's rows of the global
+    batch's draws;
+  * data parallel: the gradients of every whole tensor are summed over all
+    ranks and divided by the world size once a step (after the ``accum``
+    microbatches), one all-reduce of them flattened together with the loss,
+    which is reported as the global mean; the centre takes the global
+    batch's mean (``objectives/dino.py``);
+  * head tensor parallelism (model axis M > 1): the head and the loss work
+    on this rank's out_dim block (``models/dino_head.py``,
+    ``objectives/dino.py``); the last layer's gradient blocks are summed
+    over the data axis;
+  * ZeRO (``fsdp``): each split tensor's gradient is summed over the model
+    axis and reduce-scattered over the data axis, and its optimizer moments
+    live as blocks (``core/mesh.fsdp_spec``);
+  * clipping and the optimizer act on each rank's blocks, the joint norms
+    all-reduced (``train/optim.py``); the teacher EMA too; then every split
+    parameter and the centre are all-gathered, so each rank ends the step
+    with the full state one process would hold.
+
 Not ported yet: ``bucket_merge`` (ROADMAP.md queue 1 #7).
 """
 
@@ -44,10 +69,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from dinomc_tpu_torch.core import mesh as core_mesh
 from dinomc_tpu_torch.models.dino_head import DINOHead, DINOHeadConfig, dino_head_forward
 from dinomc_tpu_torch.models.encoders import EncoderConfig
-from dinomc_tpu_torch.objectives.dino import dino_loss
+from dinomc_tpu_torch.objectives.dino import dino_loss, global_mean
 from dinomc_tpu_torch.ops.hopper.attention import MAX_FUSED_LEN, _pad_len
+from dinomc_tpu_torch.parallel import distributed as pd
 from dinomc_tpu_torch.train import optim
 
 
@@ -134,6 +161,10 @@ class DinoTrainState:
     opt_state: Dict
     center: torch.Tensor  # (out_dim,) f32
     generator: torch.Generator  # DropPath draws, on the state's device
+    # set by core/mesh.shard_dino_state: the process mesh, and each student
+    # parameter's placement on it (None: whole)
+    mesh: Optional[object] = None
+    placements: Optional[Dict] = None
 
 
 def init_dino_train_state(cfg: DinoConfig, seed: int = 0, device="cpu") -> DinoTrainState:
@@ -221,11 +252,13 @@ def _forward_crops(
     enc: EncoderConfig,
     train: bool,
     generator: Optional[torch.Generator],
+    mesh=None,
 ) -> torch.Tensor:
     """Backbone per resolution bucket, local buckets packed in pairs into
     block-diagonal forwards where they fit (exact;
     ``models/vit.vit_forward_packed``), then one head pass. Returns
-    (n_crops, B, K) logits in crop order."""
+    (n_crops, B, K) logits in crop order; under head tensor parallelism
+    (n_crops, M * B, K / M), the model group's rows at this rank's block."""
     G, B = global_crops.shape[:2]
     backbone, head = model["backbone"], model["head"]
     gx = global_crops.reshape((G * B,) + tuple(global_crops.shape[2:]))
@@ -253,26 +286,105 @@ def _forward_crops(
         store(idxs, enc.apply(backbone, xs, train, generator))
     feats.extend(local_feats[i] for i in range(len(local_crops)))
 
-    logits = dino_head_forward(head, torch.cat(feats, dim=0))
-    return logits.reshape(len(feats), B, -1)
+    logits = dino_head_forward(head, torch.cat(feats, dim=0), mesh, len(feats))
+    return logits.reshape(len(feats), -1, logits.shape[-1])
+
+
+def _active_mesh(state: DinoTrainState):
+    """The state's mesh while a process group is up, else None."""
+    mesh = state.mesh
+    return mesh if mesh is not None and mesh.active else None
+
+
+def _center_block(state: DinoTrainState, mesh) -> torch.Tensor:
+    """The centre, or this rank's out_dim block of it under head TP."""
+    if mesh is None or mesh.size(core_mesh.MODEL_AXIS) == 1:
+        return state.center
+    return core_mesh.shard(mesh, state.center, (core_mesh.MODEL_AXIS, 0))
 
 
 def _loss_and_grads(state, global_crops, local_crops, teacher_temp, generator, cfg):
     """One teacher + student forward over a batch, the DINO loss against
     the state's centre, and the student's gradients (the graph is freed by
     ``autograd.grad``). Returns (loss, grads in ``named_parameters`` order,
-    new centre, teacher logits)."""
+    new centre, teacher logits). On a mesh: this rank's loss and gradients
+    (``_reduce_grads`` makes them the global batch's) and the new centre
+    (its block under head TP) from the global batch's mean."""
     enc_s, enc_t = cfg.encoder(student=True), cfg.encoder(student=False)
-    with torch.no_grad():
-        teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, enc_t.has_bn,
-                                        None)
-    student_logits = _forward_crops(state.student, global_crops, local_crops, enc_s, True, generator)
-    loss, new_center = dino_loss(
-        student_logits, teacher_logits, state.center, teacher_temp,
-        cfg.student_temp, cfg.center_momentum,
-    )
-    grads = torch.autograd.grad(loss, list(state.student.parameters()))
+    mesh = _active_mesh(state)
+    shard = mesh.batch_shard(global_crops.shape[1]) if mesh is not None else None
+    with pd.batch_shard(shard):
+        with torch.no_grad():
+            teacher_logits = _forward_crops(state.teacher, global_crops, (), enc_t, enc_t.has_bn,
+                                            None, mesh)
+        student_logits = _forward_crops(state.student, global_crops, local_crops, enc_s, True,
+                                        generator, mesh)
+        loss, new_center = dino_loss(
+            student_logits, teacher_logits, _center_block(state, mesh), teacher_temp,
+            cfg.student_temp, cfg.center_momentum, mesh,
+        )
+        # inside the shard: a remat replay of a SyncBN forward reduces too
+        grads = torch.autograd.grad(loss, list(state.student.parameters()))
     return loss.detach(), grads, new_center, teacher_logits
+
+
+@torch.no_grad()
+def _reduce_grads(state: DinoTrainState, grads, loss):
+    """The global batch's gradients and loss from every rank's: whole
+    tensors' gradients summed over all ranks over the world size (one
+    all-reduce, the loss in it), a head-TP block's summed over the data
+    axis, a ZeRO tensor's summed over the model axis and reduce-scattered
+    over the data axis (both over the world size). Returns
+    ({name: gradient or this rank's block of it}, loss). Alone: as given."""
+    names = [n for n, _ in state.student.named_parameters()]
+    mesh = _active_mesh(state)
+    if mesh is None:
+        return dict(zip(names, grads)), loss
+    inv_w = 1.0 / mesh.world
+    placements = state.placements or {}
+    out = {}
+    whole = [(n, g) for n, g in zip(names, grads) if placements.get(n) is None]
+    flat = torch.cat([g.reshape(-1) for _, g in whole] + [loss.reshape(1).to(whole[0][1].dtype)])
+    pd.all_reduce_(flat).mul_(inv_w)
+    offset = 0
+    for n, g in whole:
+        out[n] = flat[offset: offset + g.numel()].view_as(g)
+        offset += g.numel()
+    loss = flat[offset].to(loss.dtype)
+    for n, g in zip(names, grads):
+        pl = placements.get(n)
+        if pl is None:
+            continue
+        axis, dim = pl
+        if axis == core_mesh.MODEL_AXIS:
+            blk = core_mesh.shard(mesh, g, pl).clone()
+            out[n] = mesh.reduce_(blk, core_mesh.DATA_AXIS).mul_(inv_w)
+            continue
+        mesh.reduce_(g, core_mesh.MODEL_AXIS)
+        parts = [p.contiguous() for p in g.chunk(mesh.size(axis), dim=dim)]
+        blk = torch.empty_like(parts[0])
+        torch.distributed.reduce_scatter(blk, parts, group=mesh.group(axis))
+        out[n] = blk.mul_(inv_w)
+    return {n: out[n] for n in names}, loss
+
+
+def _sq_reducer(state: DinoTrainState):
+    """``optim``'s ``sq_reduce`` for the state's split tensors: their local
+    sums of squares all-reduced over their axis, one collective an axis."""
+    mesh, placements = _active_mesh(state), state.placements or {}
+    split = {n: pl[0] for n, pl in placements.items() if pl is not None}
+    if mesh is None or not split:
+        return None
+
+    def reduce(sq):
+        out = dict(sq)
+        for axis in sorted({split[n] for n in sq if n in split}):
+            names = [n for n in sq if split.get(n) == axis]
+            v = mesh.reduce_(torch.stack([sq[n] for n in names]), axis)
+            out.update(zip(names, v.unbind()))
+        return out
+
+    return reduce
 
 
 def dino_loss_and_grads(
@@ -287,11 +399,12 @@ def dino_loss_and_grads(
     Returns (loss, {param name: grad}, new_center). Parameters, optimizer
     state and centre are left as they are; a convnet's forwards move the
     teacher's and the student's BatchNorm running statistics, as the JAX
-    function's returned states do."""
+    function's returned states do. On a mesh: the global batch's loss and
+    gradients (a split tensor's: this rank's block)."""
     loss, grads, new_center, _ = _loss_and_grads(
         state, global_crops, local_crops, teacher_temp, generator, cfg)
-    names = [n for n, _ in state.student.named_parameters()]
-    return loss, dict(zip(names, grads)), new_center
+    grads, loss = _reduce_grads(state, grads, loss)
+    return loss, grads, new_center
 
 
 def dino_train_step(
@@ -335,7 +448,11 @@ def dino_train_step_accum(
     microbatch's. A convnet's BatchNorm statistics move a microbatch at a
     time (teacher, then student, microbatch by microbatch, as the JAX scan
     threads them); XCiT's LPI BatchNorm sees each microbatch as its batch;
-    DropPath draws come from ``state.generator`` in microbatch order."""
+    DropPath draws come from ``state.generator`` in microbatch order. On a
+    mesh, a rank's rows ``a::accum`` are its block of the global batch's
+    microbatch ``a`` (``accum`` divides the rank's batch), the gradients
+    are reduced once, after the last microbatch, and the centre's mean is
+    the global batch's."""
     A = accum
     B = global_crops.shape[1]
     if B % A:
@@ -360,12 +477,15 @@ def dino_train_step_accum(
     if A > 1:
         for g in grads_acc:
             g.mul_(inv_a)
-    names = [n for n, _ in state.student.named_parameters()]
-    grads = dict(zip(names, grads_acc))
+    grads, loss = _reduce_grads(state, grads_acc, loss_acc * inv_a)
+    mesh = _active_mesh(state)
+    bc = bc_acc * inv_a
+    if mesh is not None:
+        bc = global_mean(bc, mesh)
     m = cfg.center_momentum
-    new_center = state.center * m + (bc_acc * inv_a) * (1.0 - m)
+    new_center = _center_block(state, mesh) * m + bc * (1.0 - m)
     return _finish_step(
-        state, grads, loss_acc * inv_a, new_center, float(schedules.lr[step]),
+        state, grads, loss, new_center, float(schedules.lr[step]),
         float(schedules.wd[step]), float(schedules.teacher_momentum[step]), epoch, cfg,
     )
 
@@ -373,10 +493,19 @@ def dino_train_step_accum(
 @torch.no_grad()
 def _finish_step(state, grads, loss, new_center, lr, wd, ema_m, epoch, cfg: DinoConfig):
     """Clip -> masked optimizer update -> EMA teacher -> centre and step,
-    in place."""
+    in place. On a mesh, ``grads`` and ``new_center`` hold this rank's
+    blocks of split tensors: the update and the EMA act on those blocks,
+    then the blocks are all-gathered."""
+    mesh, placements = _active_mesh(state), state.placements or {}
+    sq_reduce = _sq_reducer(state)
     if cfg.clip_grad > 0:
-        optim.clip_gradients_per_tensor(grads, cfg.clip_grad)
-    params = dict(state.student.named_parameters())
+        optim.clip_gradients_per_tensor(grads, cfg.clip_grad, sq_reduce)
+    full = dict(state.student.named_parameters())
+    # a list, in parameter order: every rank must gather in the same order
+    split = [n for n in full if mesh is not None and placements.get(n) is not None]
+    params = dict(full)
+    for n in split:
+        params[n] = core_mesh.shard(mesh, full[n], placements[n])
     wd_m, last_layer_m, frozen_m = _masks(cfg, params)
     # The last layer is frozen entirely while epoch < freeze_last_layer
     # (reference sets .grad = None, skipping its wd too, utils/utils.py:157-162).
@@ -386,12 +515,22 @@ def _finish_step(state, grads, loss, new_center, lr, wd, ema_m, epoch, cfg: Dino
         for n in params
     }
     _, opt_update = optim.OPTIMIZERS[cfg.optimizer]
-    opt_update(grads, state.opt_state, params, lr, wd, wd_m, frozen_mask=frozen)
+    opt_update(grads, state.opt_state, params, lr, wd, wd_m, frozen_mask=frozen,
+               sq_reduce=sq_reduce)
 
     # EMA teacher from the updated student (main_dino_mc.py:403-406), over
     # parameters only: BatchNorm statistics come from the teacher's forwards
-    for t, s in zip(state.teacher.parameters(), state.student.parameters()):
+    teacher = dict(state.teacher.named_parameters())
+    for n, s in params.items():
+        t = teacher[n]
+        if n in split:
+            t = core_mesh.shard(mesh, t, placements[n])
         t.mul_(ema_m).add_(s.float(), alpha=1.0 - ema_m)
+    for n in split:
+        core_mesh.gather(mesh, full[n], placements[n])
+        core_mesh.gather(mesh, teacher[n], placements[n])
+    if mesh is not None and mesh.size(core_mesh.MODEL_AXIS) > 1:
+        new_center = core_mesh.gathered(mesh, new_center, (core_mesh.MODEL_AXIS, 0))
     state.center = new_center
     state.step += 1
     return {"loss": loss, "lr": lr, "wd": wd, "teacher_momentum": ema_m}

@@ -23,6 +23,14 @@ LARS's trust ratio likewise takes the joint norm of a group.
 
 Unlike the functional JAX version, ``clip_gradients_per_tensor`` and the
 updates change their tensors in place under ``torch.no_grad()``.
+
+On sharded tensors (``core/mesh.py``: a rank holds one block of a split
+tensor's gradient, moments and parameter) AdamW, SGD and LARS update each
+block where it lies. The joint norms of clipping and of LARS's trust ratio
+take a ``sq_reduce`` hook: it receives each tensor's local sum of squares
+and returns them with every split tensor's summed over its blocks (an
+all-reduce), so a group's norm is the square root of the shards' squared
+norms summed.
 ``OPTIMIZERS`` maps a name to (init, update), as in JAX.
 """
 
@@ -73,19 +81,30 @@ def path_mask(params: Mapping[str, torch.Tensor], pred: Callable[[str], bool]) -
     return {name: 1.0 if pred(name) else 0.0 for name in params}
 
 
+SqReduce = Optional[Callable[[Tensors], Tensors]]
+
+
+def _sq_sums(tensors: Mapping[str, torch.Tensor], sq_reduce: SqReduce) -> Tensors:
+    """Each tensor's f32 sum of squares, summed over its shards by
+    ``sq_reduce`` where given. Sums of squares, not vector_norm: torch's CPU
+    norm kernel drifts by ~1e-4 relative over a 4M-element tensor in
+    float32; sum does not."""
+    sq = {n: t.float().square().sum() for n, t in tensors.items()}
+    return sq_reduce(sq) if sq_reduce is not None else sq
+
+
 @torch.no_grad()
-def clip_gradients_per_tensor(grads: Tensors, clip: float) -> Tensors:
+def clip_gradients_per_tensor(grads: Tensors, clip: float, sq_reduce: SqReduce = None) -> Tensors:
     """Scale each stacked leaf's gradients in place by
     min(1, clip / (||g|| + 1e-6)), ||g|| the norm over all of the leaf's
-    tensors. No host sync: the coefficient stays on the device."""
+    tensors (over all their shards, with ``sq_reduce``). No host sync: the
+    coefficient stays on the device."""
+    sq = _sq_sums(grads, sq_reduce)
     for names in _groups(grads).values():
-        gs = [grads[n] for n in names]
-        # sum of squares, not vector_norm: torch's CPU norm kernel drifts by
-        # ~1e-4 relative over a 4M-element tensor in float32; sum does not
-        norm = torch.stack([g.float().square().sum() for g in gs]).sum().sqrt()
+        norm = torch.stack([sq[n] for n in names]).sum().sqrt()
         coef = torch.clamp(clip / (norm + 1e-6), max=1.0)
-        for g in gs:
-            g.mul_(coef.to(g.dtype))
+        for n in names:
+            grads[n].mul_(coef.to(grads[n].dtype))
     return grads
 
 
@@ -110,6 +129,7 @@ def adamw_update(
     b2: float = 0.999,
     eps: float = 1e-8,
     frozen_mask: Optional[Mapping[str, float]] = None,
+    sq_reduce: SqReduce = None,
 ) -> None:
     """Torch-AdamW: p -= lr * (mhat / (sqrt(vhat) + eps) + wd * mask * p),
     in place on ``params`` and ``state``. ``frozen_mask`` (1.0 = frozen)
@@ -148,6 +168,7 @@ def sgd_update(
     wd_mask_tree: Mapping[str, float],
     momentum: float = 0.9,
     frozen_mask: Optional[Mapping[str, float]] = None,
+    sq_reduce: SqReduce = None,
 ) -> None:
     """Torch SGD with momentum (no dampening, no Nesterov):
     m = momentum * m + g + wd * mask * p, then p -= lr * m, in place. A
@@ -180,6 +201,7 @@ def lars_update(
     momentum: float = 0.9,
     eta: float = 0.001,
     frozen_mask: Optional[Mapping[str, float]] = None,
+    sq_reduce: SqReduce = None,
 ) -> None:
     """LARS, BarlowTwins flavour (reference ``utils/utils.py:570-608``), in
     place. On a regularized leaf (``wd_mask`` 1) the gradient gains
@@ -188,7 +210,8 @@ def lars_update(
     others (bias and 1-D, the reference's ``exclude_bias_and_norm``) take the
     raw gradient. Then m = momentum * m + g and p -= lr * m. A frozen
     parameter keeps its value and its buffer. No host sync: the ratio stays
-    on the device."""
+    on the device. ``sq_reduce``: as for ``clip_gradients_per_tensor``.
+    (AdamW and SGD take it too, and need no norm.)"""
     for names in _groups(params).values():
         live = [n for n in names if not (frozen_mask is not None and frozen_mask[n] > 0.5)]
         if not live:
@@ -196,9 +219,10 @@ def lars_update(
         gs = {n: grads[n].float() for n in names}
         if wd_mask_tree[names[0]]:
             gs = {n: g + weight_decay * params[n].float() for n, g in gs.items()}
-            # sums of squares, as clip_gradients_per_tensor, for the same reason
-            p_norm = torch.stack([params[n].float().square().sum() for n in names]).sum().sqrt()
-            g_norm = torch.stack([g.square().sum() for g in gs.values()]).sum().sqrt()
+            p_sq = _sq_sums({n: params[n] for n in names}, sq_reduce)
+            g_sq = _sq_sums(gs, sq_reduce)
+            p_norm = torch.stack([p_sq[n] for n in names]).sum().sqrt()
+            g_norm = torch.stack([g_sq[n] for n in names]).sum().sqrt()
             q = torch.where((p_norm > 0) & (g_norm > 0), eta * p_norm / (g_norm + 1e-12),
                             torch.ones_like(p_norm))
             gs = {n: g * q for n, g in gs.items()}

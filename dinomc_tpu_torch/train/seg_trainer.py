@@ -9,6 +9,13 @@ without autograd (``stop_backbone_grad``), so the backward never enters the
 ViT, and the AdamW frozen mask leaves its parameters, moments and step
 counts untouched. The step updates ``SegTrainState`` in place: parameters,
 BatchNorm running statistics, AdamW state and the step counter.
+
+``mesh`` (``core/mesh.py``; JAX ``seg_train_step``'s ``mesh``): with a
+``seq`` axis > 1 the backbone runs sequence-parallel (``models/upernet.py``).
+Every rank holds the whole batch and runs the decoder and the loss on it;
+the gradients are summed over all ranks and divided by the world size (each
+rank's backbone gradient covers its token and batch blocks; the decoder's is
+the same on every rank), so every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from dinomc_tpu_torch.models.upernet import UPerNet, UPerNetConfig, upernet_forward
 from dinomc_tpu_torch.objectives.segmentation import cross_entropy_loss, dice_ce_loss
+from dinomc_tpu_torch.parallel import distributed as pd
 from dinomc_tpu_torch.train import optim
 from dinomc_tpu_torch.train.dino_trainer import set_matmul_precision
 
@@ -69,16 +77,18 @@ def seg_loss_and_grads(
     masks: torch.Tensor,  # (B, H, W) int
     cfg: SegConfig,
     drop_masks: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ):
     """Forward, loss and the gradients of every trainable parameter.
     Returns (loss, logits, {name: grad}); changes only the BatchNorm
-    statistics and the dropout generator."""
+    statistics and the dropout generator. ``mesh``: the gradients are the
+    mean over its ranks."""
     model = state.model
     params = dict(model.named_parameters())
     live = [name for name in params if not cfg.frozen_pred(name)]
     out = upernet_forward(
         model, images, train=True, generator=state.generator, with_aux=cfg.use_aux_loss,
-        stop_backbone_grad=not cfg.train_backbone, drop_masks=drop_masks,
+        stop_backbone_grad=not cfg.train_backbone, drop_masks=drop_masks, mesh=mesh,
     )
     logits = out[0] if cfg.use_aux_loss else out
     loss = dice_ce_loss(logits, masks, cfg.ignore_index)
@@ -90,6 +100,10 @@ def seg_loss_and_grads(
     grads = torch.autograd.grad(
         loss, [params[n] for n in live], allow_unused=True, materialize_grads=True,
     ) if live else ()
+    if grads and mesh is not None and mesh.active:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        pd.all_reduce_(flat).mul_(1.0 / mesh.world)
+        grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
     return loss.detach(), logits.detach(), dict(zip(live, grads))
 
 
@@ -112,17 +126,20 @@ def seg_train_step(
     weight_decay: float,
     cfg: SegConfig,
     drop_masks: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict:
     """One optimizer step. Dropout masks come from ``drop_masks`` if given,
     else from ``state.generator``. Returns metrics; the loss and pixel
-    accuracy stay device tensors (reading them syncs the host)."""
-    loss, logits, grads = seg_loss_and_grads(state, images, masks, cfg, drop_masks)
+    accuracy stay device tensors (reading them syncs the host). ``mesh``:
+    the sequence-parallel step (module docstring)."""
+    loss, logits, grads = seg_loss_and_grads(state, images, masks, cfg, drop_masks, mesh)
     finish_seg_step(state, grads, lr, weight_decay, cfg)
     acc = (logits.argmax(-1) == masks).float().mean()
     return {"loss": loss, "pixel_acc": acc, "lr": lr}
 
 
 @torch.no_grad()
-def seg_predict(model: UPerNet, images: torch.Tensor) -> torch.Tensor:
-    """Eval-mode logits (B, H, W, C), 'whole' test mode."""
-    return upernet_forward(model, images, train=False)
+def seg_predict(model: UPerNet, images: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Eval-mode logits (B, H, W, C), 'whole' test mode; ``mesh`` with a
+    ``seq`` axis > 1 spreads the backbone's tokens over its ranks."""
+    return upernet_forward(model, images, train=False, mesh=mesh)

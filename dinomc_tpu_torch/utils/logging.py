@@ -83,6 +83,24 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(f"{k}: {m}" for k, m in self.meters.items())
 
+    def synchronize_between_processes(self):
+        """Sum each meter's (count, total) across processes, so
+        ``global_avg`` covers every rank (reference ``SmoothedValue.
+        synchronize_between_processes``, ``utils/utils.py:257-268,356-358``).
+        The window statistics stay local, as in the reference. A no-op
+        alone. Every rank must hold the same meter names."""
+        from dinomc_tpu_torch.parallel import distributed as pd
+
+        names = sorted(self.meters)
+        if pd.get_world_size() < 2 or not names:
+            return
+        local = torch.tensor([[self.meters[n].count, self.meters[n].total] for n in names],
+                             dtype=torch.float64, device=pd.comm_device())
+        pd.all_reduce_(local)
+        for n, (cnt, tot) in zip(names, local.tolist()):
+            self.meters[n].count = int(cnt)
+            self.meters[n].total = float(tot)
+
     def log_every(self, iterable, print_freq: int, header: str = "", total: Optional[int] = None):
         """Iterate with periodic ``header [i/N] eta ... meters time data mem``
         lines. Host-clock times: a step that does not sync is counted when

@@ -94,18 +94,26 @@ def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
     ["--data_mode", "tp", "--model_parallel", "2"], ["--model_parallel", "2"], ["--fsdp", "true"],
     ["--grad_accum_steps", "2", "--fsdp", "true"],
     ["--bands", "B4", "B3", "B2", "--model_parallel", "4"],
-    # the convnets, LARS, XCiT, DINO-TP, --bands and --grad_accum_steps are
-    # ported: with them, what is not is still refused
     ["--arch", "resnet50", "--model_parallel", "2"],
     ["--optimizer", "lars", "--fsdp", "true"],
     ["--arch", "xcit_small_12", "--model_parallel", "2"],
 ], ids=lambda f: f[0].lstrip("-") + "-" + f[1])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags):
-    """A case's id is its first flag; in every case but [model_parallel-2]
-    and [fsdp-true] the option refused is the multi-device one that follows
-    a ported option. The refusal names queue 1 #17."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1 #17"):
-        train_dino(_args(tmp_path, "--max_steps", "1", *flags))
+    """The multi-device options in one process (no torchrun environment,
+    world size 1). A case's id is its first flag. ``--model_parallel 2`` or
+    ``4`` cannot divide the world size: a ValueError names it, as the JAX
+    CLI's assert does, before any model is built. ``--fsdp true`` (alone,
+    with ``--grad_accum_steps 2``, with ``--optimizer lars``) is plain
+    training at data size 1, as in JAX: one step runs and nothing is split."""
+    args = _args(tmp_path, "--max_steps", "1", *flags)
+    if args.model_parallel > 1:
+        with pytest.raises(ValueError, match=r"must divide the world size 1"):
+            train_dino(args)
+        return
+    out = train_dino(args)
+    assert len(out.losses) == 1 and math.isfinite(out.losses[0])
+    assert out.state.placements and not any(out.state.placements.values())
+    assert not out.state.mesh.active
 
 
 def test_cuda_device_without_a_card_raises(tmp_path, monkeypatch):

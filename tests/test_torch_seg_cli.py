@@ -65,10 +65,15 @@ def test_pending_losses_never_exceed_print_freq(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--seq_parallel", "2"], ["--pretrained_ckpt", "some_orbax_dir"]])
 def test_unported_options_name_their_roadmap_item(tmp_path, flags):
-    """--seq_parallel names its ROADMAP item; an orbax directory, done with
-    in the port, names the converters that make a .pth."""
-    match = "ROADMAP.md queue 1 #17" if "--seq_parallel" in flags else "cli.convert_ckpt"
-    with pytest.raises(NotImplementedError, match=match):
+    """--seq_parallel 2 in one process (world size 1) cannot divide the
+    world size: a ValueError names it, as the JAX CLI's assert does (the
+    two-rank run is in tests/test_torch_mp_cli.py); an orbax directory, done
+    with in the port, names the converters that make a .pth."""
+    if "--seq_parallel" in flags:
+        with pytest.raises(ValueError, match="--seq_parallel 2 must divide the world size 1"):
+            train_seg(_args(tmp_path, *flags))
+        return
+    with pytest.raises(NotImplementedError, match="cli.convert_ckpt"):
         train_seg(_args(tmp_path, *flags))
 
 

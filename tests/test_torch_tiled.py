@@ -477,7 +477,7 @@ def test_evaluate_stitched_cli_runs_and_refuses_what_is_unported(tmp_path, capsy
                                       str(tmp_path / "logits" / "patches_metadata.json"),
                                       (448, 448), basename="synthetic_0")
     assert torch.equal(rebuilt, canvases["synthetic_0"])
-    with pytest.raises(NotImplementedError, match="#17"):
+    with pytest.raises(ValueError, match="--seq_parallel 2 must divide the world size 1"):
         mod.run(_args(mod, [], **common, seq_parallel=2))
     orbax = tmp_path / "orbax"
     (orbax / "0").mkdir(parents=True)
@@ -511,7 +511,7 @@ def test_predict_cli(tmp_path):
     np.testing.assert_array_equal(pred, want.argmax(-1).numpy())
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "pred2.png")),
                                   tsd.class_to_rgb(pred, tsd.UAVID))
-    with pytest.raises(NotImplementedError, match="#17"):
+    with pytest.raises(ValueError, match="--seq_parallel 4 must divide the world size 1"):
         mod.run(_args(mod, ["--image", img_path], **common, seq_parallel=4))
 
 
